@@ -1,0 +1,81 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into a
+plain shared library at first use (one build per source content, cached in
+``commet_tpu_torch/_build/``) and loaded with ``ctypes``: the C functions take
+raw device pointers and the CUDA stream, and return ``cudaGetLastError()``.
+Nothing here runs at import time; a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "core", "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# C signatures of the exported functions, per source file
+_SIGNATURES = {
+    "join": {"commet_join": [ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_int64, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_int64,
+                             ctypes.c_void_p, ctypes.c_void_p]},
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels are built from source")
+
+
+def _build(name: str) -> str:
+    """Compile csrc/<name>.cu into a content-addressed shared library."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for csrc/<name>.cu (built on first call)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(_build(name))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = ctypes.c_int  # cudaError_t
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
+        return lib
