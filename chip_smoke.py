@@ -5,7 +5,8 @@
 
 Phases, each printing one line with its seconds:
   1. card: the GPU's name and power limit (nvidia-smi) and torch's name;
-  2. build: the hand-written join kernel from commet_tpu_torch/core/csrc/;
+  2. build: the hand-written join kernels (csrc/join.cu: commet_join and
+     commet_join_multi) from commet_tpu_torch/core/csrc/;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows); verdicts must be
@@ -13,12 +14,23 @@ Phases, each printing one line with its seconds:
   4. golden: the port's index_and_search CLI on tests/data (qa.fq.gz indexed,
      qb.fq searched, k=21, t=2) must reproduce tests/golden/unit/fq/, the
      C++ reference's payload and counters;
-  5. main path: the port's commet driver (classic schedule, k=32, t=2) on
-     three 1M-read x 100 bp fasta sets made from a numpy seed, sets 2 and 3
-     carrying 64 bp fragments of set 1 in half their reads, 1% of reads with
-     an N; the matrices must exist and the shared counts against set 1 must
-     equal the counts known from the construction; the join kernel must have
-     been launched.
+  5. multi kernel: the grouped join kernel on three 64M-pair indexes (phase
+     3's index and two more that share part of its pairs and keys) against
+     phase 3's 9M sorted queries; verdicts must equal its plain version's;
+     the kernel, the plain version and three single-index launches timed by
+     CUDA events; then one 65,536-read probe batch against the three
+     indexes, its stages timed and its peak device bytes per window key;
+  6. main path: the port's commet driver (default, amortized schedule,
+     k=32, t=2) on four 1M-read x 100 bp fasta sets made from a numpy seed:
+     sets 2 and 3 carry 64 bp fragments of set 1 in half their reads, set 4
+     fragments of set 2's other reads, 1% of reads hold an N. The driver must
+     say it took the amortized schedule, join S = 3 slots for set 4, launch
+     both kernels, and match the shared counts known from the construction
+     against set 1 (slot 0) and, for set 4, against set 2 (slot 1);
+  7. schedules: on four 200k-read sets, the amortized and the classic
+     (COMMET_TPU_MULTI=0) driver write byte-identical .bv and matrix files,
+     and --one_vs_all's vector_plain.csv cells equal
+     matrix_plain[0][j]/matrix_plain[j][0].
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -26,6 +38,9 @@ this script, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
 import os
 import subprocess
@@ -41,10 +56,12 @@ T = 2
 INDEX_PAIRS = 64 << 20
 QUERY_PAIRS = 65536 * 2 * (100 - K + 1)
 SET_READS = 1_000_000
+SCHED_READS = 200_000
 READ_LEN = 100
 FRAG = 2 * K
 JOIN_SOURCE = "commet_tpu_torch/core/csrc/join.cu"
 JOIN_REPLACES = "commet_tpu/core/stream.py:67"
+JOIN_MULTI_REPLACES = "commet_tpu/core/stream.py:548"
 
 
 def log(msg: str) -> None:
@@ -127,7 +144,110 @@ def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
     return {"counts": counts, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "unsorted_ms": unsorted_ms,
             "sort_unsort_ms": sort_ms, "mi": sidx.mi,
-            "launches": stream.join_membership.launches}
+            "launches": stream.join_membership.launches,
+            "sidx": sidx, "queries": (qa_s, qb_s), "verdicts": got}
+
+
+def phase_multi_kernel(device, rng, kern):
+    """The grouped join on phase 3's index and two more (a quarter of each
+    new index's pairs copied from the first, a quarter with its keya and
+    another keyb) against phase 3's sorted queries, vs its plain version
+    and vs three single-index launches; then one probe batch's stages."""
+    import torch
+    from commet_tpu_torch.core import keys, stream
+    first = kern["sidx"]
+    qa_s, qb_s = kern["queries"]
+    top = 1 << K
+    a0 = first.ika.cpu().numpy()
+    b0 = first.ikb.cpu().numpy()
+    idxs = [first]
+    for _ in range(2):
+        a = rng.integers(0, top, INDEX_PAIRS, dtype=np.int64)
+        b = rng.integers(0, top, INDEX_PAIRS, dtype=np.int64)
+        q = INDEX_PAIRS // 4
+        pick = rng.integers(0, len(a0), 2 * q)
+        a[:2 * q] = a0[pick]
+        b[:q] = b0[pick[:q]]
+        idxs.append(stream.finalize_index([torch.from_numpy(a).to(device)],
+                                          [torch.from_numpy(b).to(device)]))
+    del a0, b0
+    slots = stream.JoinSlots([x.ika for x in idxs], [x.ikb for x in idxs],
+                             [x.mi for x in idxs])
+
+    def kernel():
+        return stream.join_membership_multi(slots, qa_s, qb_s)
+
+    def plain():
+        return stream.join_membership_multi_plain(
+            slots.ikas, slots.ikbs, slots.mis, qa_s, qb_s)
+
+    def singles():
+        return [stream.join_membership(x.ika, x.ikb, x.mi, qa_s, qb_s)
+                for x in idxs]
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"multi join kernel disagrees with its plain "
+                             f"version on {int((got != want).sum())} of "
+                             f"{got.numel()}")
+    if not torch.equal(got[0], kern["verdicts"]):
+        raise AssertionError("multi join slot 0 differs from the single "
+                             "join of phase 3")
+    counts = [torch.bincount(g.to(torch.int64), minlength=3).tolist()[:3]
+              for g in got]
+    if min(min(c) for c in counts) == 0:
+        raise AssertionError(f"verdict classes not all exercised: {counts}")
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 3)
+    singles_ms = cuda_ms(singles, 10)
+
+    # one probe batch of the main path's shape against the three indexes:
+    # random N-free 100 bp reads
+    n, lpad, wmax = 65536, 128, READ_LEN - K + 1
+    words = rng.integers(0, 1 << 32, (n, lpad // 16), dtype=np.uint64)
+    codes2 = keys.host_u32(words.astype(np.uint32)).to(device)
+    lengths = torch.full((n,), READ_LEN, dtype=torch.int32, device=device)
+    stages = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev[0].record()
+    codes = keys.unpack_codes_clean(codes2, lengths, lpad)
+    wk = keys.window_keys(codes, K, "both", wmax)
+    ev[1].record()
+    sk, skb, perm = stream._sorted_queries(wk)
+    ev[2].record()
+    mem_s = stream.join_membership_multi(slots, sk, skb)
+    ev[3].record()
+    mem = torch.empty_like(mem_s).index_copy_(1, perm, mem_s)
+    verdicts = stream._multi_verdicts(
+        wk["ok"], mem.reshape(len(slots), n, 2, wmax), K, T)
+    ev[4].record()
+    torch.cuda.synchronize()
+    n_keys = n * 2 * wmax
+    for i, name in enumerate(("keygen", "sort", "join", "unsort_verdict")):
+        stages[name] = ev[i].elapsed_time(ev[i + 1])
+    peak = torch.cuda.max_memory_allocated() - base
+    want_v = stream.probe_multi_stream_clean(slots, codes2, lengths, lpad, K,
+                                             T, wmax)
+    if not torch.equal(verdicts, want_v):
+        raise AssertionError("staged probe batch differs from "
+                             "probe_multi_stream_clean")
+    del codes, wk, sk, skb, perm, mem_s, mem
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stream.probe_stream_clean(idxs[0], codes2, lengths, lpad, K, T, wmax)
+    torch.cuda.synchronize()
+    peak1 = torch.cuda.max_memory_allocated() - base
+    return {"counts": counts, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "singles_ms": singles_ms,
+            "stages": stages, "n_keys": n_keys,
+            "bytes_per_key_s3": peak / n_keys,
+            "bytes_per_key_s1": peak1 / n_keys}
 
 
 def phase_golden(device: str, tmp: str) -> str:
@@ -174,35 +294,46 @@ def _write_fasta(path: str, codes: np.ndarray) -> None:
     np.concatenate([head, body, newline], axis=1).tofile(path)
 
 
+def _implant(rng, sets, q: int, donor: int, rows, donor_rows):
+    """Copy a 64 bp fragment of a random ``donor_rows`` read of set
+    ``donor`` into each ``rows`` read of set ``q``; returns the known
+    shared counts (set q reads holding an N-free fragment, distinct donor
+    reads of such fragments)."""
+    donors = donor_rows[rng.integers(0, len(donor_rows), len(rows))]
+    src = rng.integers(0, READ_LEN - FRAG + 1, len(rows))
+    dst = rng.integers(0, READ_LEN - FRAG + 1, len(rows))
+    off = np.arange(FRAG)
+    s, d = sets[q], sets[donor]
+    frag = d[donors[:, None], src[:, None] + off]
+    s[rows[:, None], dst[:, None] + off] = frag
+    # the bases beside a fragment differ from the donor's, so a shared
+    # window never extends past it: a read is shared iff its fragment is
+    # N-free (two non-overlapping k-mers)
+    for side, ok in ((-1, (src > 0) & (dst > 0)),
+                     (FRAG, (src + FRAG < READ_LEN)
+                      & (dst + FRAG < READ_LEN))):
+        r, qs, ds = rows[ok], dst[ok] + side, src[ok] + side
+        s[r, qs] = (d[donors[ok], ds] + 1) % 4
+    clean = (frag < 4).all(axis=1)
+    return int(clean.sum()), len(np.unique(donors[clean]))
+
+
 def make_sets(rng, tmp: str, n_reads: int):
-    """Three fasta sets; returns the manifest path and, per set j > 0, the
-    exact shared counts against set 1 known from the construction:
-    (set j reads holding an N-free fragment, distinct set-1 donors of such
-    fragments)."""
+    """Four fasta sets: sets 2 and 3 hold fragments of set 1 in their even
+    reads, set 4 fragments of set 2's odd reads (which hold none of set 1)
+    in its even reads. Returns the manifest path and the known shared
+    counts {(query set, donor set): (n_query, n_donor)}, 0-based."""
     sets = [rng.integers(0, 4, (n_reads, READ_LEN), dtype=np.uint8)
-            for _ in range(3)]
+            for _ in range(4)]
     for s in sets:  # 1% of reads carry one N
         rows = rng.choice(n_reads, n_reads // 100, replace=False)
         s[rows, rng.integers(0, READ_LEN, len(rows))] = 4
-    expected = []
-    for s in sets[1:]:
-        rows = np.arange(0, n_reads, 2)  # half the reads get a fragment
-        donors = rng.integers(0, n_reads, len(rows))
-        src = rng.integers(0, READ_LEN - FRAG + 1, len(rows))
-        dst = rng.integers(0, READ_LEN - FRAG + 1, len(rows))
-        off = np.arange(FRAG)
-        frag = sets[0][donors[:, None], src[:, None] + off]
-        s[rows[:, None], dst[:, None] + off] = frag
-        # the bases beside a fragment differ from the donor's, so a shared
-        # window never extends past it: a read is shared iff its fragment
-        # is N-free (two non-overlapping k-mers)
-        for side, ok in ((-1, (src > 0) & (dst > 0)),
-                         (FRAG, (src + FRAG < READ_LEN)
-                          & (dst + FRAG < READ_LEN))):
-            r, qs, ds = rows[ok], dst[ok] + side, src[ok] + side
-            s[r, qs] = (sets[0][donors[ok], ds] + 1) % 4
-        clean = (frag < 4).all(axis=1)
-        expected.append((int(clean.sum()), len(np.unique(donors[clean]))))
+    even, odd = np.arange(0, n_reads, 2), np.arange(1, n_reads, 2)
+    expected = {}
+    for q, donor, donor_rows in ((1, 0, np.arange(n_reads)),
+                                 (2, 0, np.arange(n_reads)), (3, 1, odd)):
+        expected[(q, donor)] = _implant(rng, sets, q, donor, even,
+                                        donor_rows)
     lines = []
     for i, s in enumerate(sets):
         path = os.path.join(tmp, f"set{i + 1}.fa")
@@ -214,49 +345,130 @@ def make_sets(rng, tmp: str, n_reads: int):
     return fof, expected
 
 
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, to read the driver's lines."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.kept.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def read_matrix(path: str) -> np.ndarray:
+    with open(path) as f:
+        rows = [ln.split(";") for ln in f.read().splitlines()]
+    return np.array([[int(v) for v in r[1:]] for r in rows[1:]])
+
+
 def phase_main_path(device: str, rng, tmp: str, n_reads: int):
-    """The commet driver on three sets; returns per-call wall times."""
+    """The commet driver, default schedule, on four sets; returns per-call
+    wall times, the largest slot count, the matrix and the peak memory."""
     import torch
     from commet_tpu_torch.cli import commet
     from commet_tpu_torch.device import synchronize
     from commet_tpu_torch.engine.engine import Engine
     fof, expected = make_sets(rng, tmp, n_reads)
-    calls = []
-    real = Engine.index_and_search
+    calls, slots = [], []
+    real_pair, real_multi = Engine.index_and_search, Engine.search_multi_set
 
-    def timed(self, index_set, query_sets, **kw):
+    def timed_pair(self, index_set, query_sets, **kw):
         t0 = time.perf_counter()
-        out = real(self, index_set, query_sets, **kw)
+        out = real_pair(self, index_set, query_sets, **kw)
         synchronize(self.device)
-        calls.append((f"{'+'.join(q.name for q in query_sets)} in "
-                      f"{index_set.name}", time.perf_counter() - t0))
+        names = "+".join(q.name for q in query_sets)
+        calls.append((f"index_and_search {names} in {index_set.name}",
+                      time.perf_counter() - t0))
         return out
 
-    Engine.index_and_search = timed
+    def timed_multi(self, query_set, residents, **kw):
+        t0 = time.perf_counter()
+        out = real_multi(self, query_set, residents, **kw)
+        synchronize(self.device)
+        slots.append(sum(len(r.partitions) for r in residents))
+        names = ", ".join(r.name for r in residents)
+        io_s = self.last_io_stats
+        calls.append((f"search_multi_set {query_set.name} in {{{names}}} "
+                      f"(S = {slots[-1]}; host pack "
+                      f"{io_s.get('host_pack_s', 0.0):.3f} s, dispatch "
+                      f"waited {io_s.get('host_block_s', 0.0):.3f} s)",
+                      time.perf_counter() - t0))
+        return out
+
+    Engine.index_and_search, Engine.search_multi_set = timed_pair, timed_multi
+    tee = _Tee(sys.stdout)
     try:
         out = os.path.join(tmp, "commet_out") + "/"
-        rc = commet.main([fof, "-k", str(K), "-t", str(T), "--no-plots",
-                          "-o", out, "--device", device])
+        with contextlib.redirect_stdout(tee):
+            rc = commet.main([fof, "-k", str(K), "-t", str(T), "--no-plots",
+                              "-o", out, "--device", device])
     finally:
-        Engine.index_and_search = real
+        Engine.index_and_search, Engine.search_multi_set = (real_pair,
+                                                            real_multi)
     if rc != 0:
         raise AssertionError(f"commet exited {rc}")
+    said = tee.kept.getvalue()
+    if "schedule: amortized" not in said or "schedule: classic" in said:
+        raise AssertionError("the driver did not take the amortized "
+                             "schedule")
+    if max(slots, default=0) != 3:
+        raise AssertionError(f"set 4 joined {slots} slots, expected 3")
     for kind in ("plain", "percentage", "normalized"):
         if not os.path.exists(out + f"matrix_{kind}.csv"):
             raise AssertionError(f"matrix_{kind}.csv missing")
-    with open(out + "matrix_plain.csv") as f:
-        rows = [ln.split(";") for ln in f.read().splitlines()]
-    plain = np.array([[int(v) for v in r[1:]] for r in rows[1:]])
-    for j, (n_query, n_donor) in enumerate(expected, start=1):
-        if plain[j, 0] != n_query or plain[0, j] != n_donor:
+    plain = read_matrix(out + "matrix_plain.csv")
+    for (q, donor), (n_query, n_donor) in expected.items():
+        if plain[q, donor] != n_query or plain[donor, q] != n_donor:
             raise AssertionError(
-                f"set{j + 1} vs set1: matrix ({plain[j, 0]}, {plain[0, j]}) "
-                f"!= expected ({n_query}, {n_donor})")
-    if not (plain[0, 1:] > 0).all() or not (plain[1:, 0] > 0).all():
-        raise AssertionError(f"no shared reads against set1:\n{plain}")
+                f"set{q + 1} vs set{donor + 1}: matrix ({plain[q, donor]}, "
+                f"{plain[donor, q]}) != expected ({n_query}, {n_donor})")
     peak = (torch.cuda.max_memory_allocated()
             if device.startswith("cuda") else 0)
-    return calls, plain, peak
+    return calls, max(slots), plain, peak
+
+
+def phase_schedules(device: str, rng, tmp: str, n_reads: int):
+    """Amortized vs classic driver, then --one_vs_all, on four sets."""
+    from commet_tpu_torch.cli import commet
+    fof, _expected = make_sets(rng, tmp, n_reads)
+    runs, walls = {}, {}
+    for name, env, extra in (("amortized", "1", []), ("classic", "0", []),
+                             ("one_vs_all", "1", ["--one_vs_all"])):
+        os.environ["COMMET_TPU_MULTI"] = env
+        out = os.path.join(tmp, name) + "/"
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = commet.main([fof, "-k", str(K), "-t", str(T),
+                                  "--no-plots", "-o", out, "--device",
+                                  device] + extra)
+        finally:
+            del os.environ["COMMET_TPU_MULTI"]
+        if rc != 0:
+            raise AssertionError(f"commet ({name}) exited {rc}")
+        runs[name], walls[name] = out, time.perf_counter() - t0
+    files = sorted(os.path.basename(p) for p in
+                   glob.glob(runs["classic"] + "*_in_*.bv")
+                   + glob.glob(runs["classic"] + "matrix_*.csv"))
+    if len(files) != 4 * 3 + 3:
+        raise AssertionError(f"classic run wrote {len(files)} files")
+    for name in files:
+        with open(runs["amortized"] + name, "rb") as f1, \
+                open(runs["classic"] + name, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{name}: amortized != classic")
+    plain = read_matrix(runs["classic"] + "matrix_plain.csv")
+    with open(runs["one_vs_all"] + "vector_plain.csv") as f:
+        cells = f.read().splitlines()[1].split(";")[1:]
+    want = [f"{plain[0, j]}/{plain[j, 0]}" for j in range(len(plain))]
+    if cells != want:
+        raise AssertionError(f"vector_plain {cells} != matrix {want}")
+    return len(files), cells, walls
 
 
 def main() -> int:
@@ -289,9 +501,11 @@ def main() -> int:
         f"({time.perf_counter() - t0:.3f} s)")
 
     t0 = time.perf_counter()
-    _cuda.load("join")
-    log(f"phase build: join.cu built with nvcc and loaded "
-        f"({time.perf_counter() - t0:.3f} s)")
+    lib = _cuda.load("join")
+    for fn in ("commet_join", "commet_join_multi"):
+        getattr(lib, fn)
+    log(f"phase build: join.cu built with nvcc and loaded, commet_join and "
+        f"commet_join_multi bound ({time.perf_counter() - t0:.3f} s)")
 
     t0 = time.perf_counter()
     kern = phase_kernel(device, rng, INDEX_PAIRS, QUERY_PAIRS)
@@ -302,7 +516,6 @@ def main() -> int:
         f"{kern['unsorted_ms']:.4f} ms, query sort+unsort "
         f"{kern['sort_unsort_ms']:.4f} ms, {kern['launches']} launches "
         f"({time.perf_counter() - t0:.3f} s)")
-    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -310,31 +523,68 @@ def main() -> int:
         log(f"phase golden: qb.fq_in_QA.bv bytes equal, {counters} "
             f"({time.perf_counter() - t0:.3f} s)")
 
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multi = phase_multi_kernel(device, rng, kern)
+    del kern["sidx"], kern["queries"], kern["verdicts"]
+    st = multi["stages"]
+    log(f"phase multi kernel: join_multi on S = 3 x {INDEX_PAIRS} index "
+        f"pairs x {QUERY_PAIRS} sorted queries, verdicts identical to the "
+        f"plain version's (NONMEM/CAND/CONF per slot {multi['counts']}); "
+        f"kernel {multi['ms']:.4f} ms, plain {multi['plain_ms']:.4f} ms, "
+        f"3 single launches {multi['singles_ms']:.4f} ms; one probe batch "
+        f"of {multi['n_keys']} keys: keygen {st['keygen']:.4f} ms, sort "
+        f"{st['sort']:.4f} ms, join {st['join']:.4f} ms, unsort+verdict "
+        f"{st['unsort_verdict']:.4f} ms, peak "
+        f"{multi['bytes_per_key_s3']:.1f} B per key at S = 3, "
+        f"{multi['bytes_per_key_s1']:.1f} at S = 1 "
+        f"({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
         stream.join_membership.launches = 0
+        stream.join_membership_multi.launches = 0
         t0 = time.perf_counter()
-        calls, plain, peak = phase_main_path("cuda", rng, tmp, SET_READS)
+        calls, s_max, plain, peak = phase_main_path("cuda", rng, tmp,
+                                                    SET_READS)
         launches = stream.join_membership.launches
-        if launches == 0:
-            raise AssertionError("the main path never launched the join "
-                                 "kernel")
+        launches_multi = stream.join_membership_multi.launches
+        if launches == 0 or launches_multi == 0:
+            raise AssertionError(f"the main path launched join {launches} "
+                                 f"and join_multi {launches_multi} times")
         for what, secs in calls:
-            log(f"  index_and_search {what}: {secs:.3f} s")
-        log(f"phase main path: commet -k {K} -t {T} on 3 x {SET_READS} "
-            f"reads, matrix_plain rows {plain.tolist()}, join launches "
-            f"{launches}, max_memory_allocated {peak} B "
+            log(f"  {what}: {secs:.3f} s")
+        log(f"phase main path: commet -k {K} -t {T} on 4 x {SET_READS} "
+            f"reads, amortized schedule, S up to {s_max}, matrix_plain rows "
+            f"{plain.tolist()}, join launches {launches}, join_multi "
+            f"launches {launches_multi}, max_memory_allocated {peak} B "
+            f"({time.perf_counter() - t0:.3f} s)")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_files, cells, walls = phase_schedules("cuda", rng, tmp,
+                                                SCHED_READS)
+        log(f"phase schedules: 4 x {SCHED_READS} reads, amortized and "
+            f"classic identical over {n_files} .bv/.csv files, one_vs_all "
+            f"vector_plain {cells}; driver wall amortized "
+            f"{walls['amortized']:.3f} s, classic {walls['classic']:.3f} s, "
+            f"one_vs_all {walls['one_vs_all']:.3f} s "
             f"({time.perf_counter() - t0:.3f} s)")
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:
         raise AssertionError(f"the port imported JAX: {loaded[:5]}")
     log(f"total {time.perf_counter() - t_start:.3f} s")
-    log(json.dumps({"kernels": [{
-        "name": "join", "route": "cuda", "source": JOIN_SOURCE,
-        "replaces": JOIN_REPLACES, "launches": launches,
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"]}]}))
+    log(json.dumps({"kernels": [
+        {"name": "join", "route": "cuda", "source": JOIN_SOURCE,
+         "replaces": JOIN_REPLACES, "launches": launches,
+         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+         "plain_ms": kern["plain_ms"]},
+        {"name": "join_multi", "route": "cuda", "source": JOIN_SOURCE,
+         "replaces": JOIN_MULTI_REPLACES, "launches": launches_multi,
+         "max_abs_err": multi["max_abs_err"], "ms": multi["ms"],
+         "plain_ms": multi["plain_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

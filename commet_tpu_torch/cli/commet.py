@@ -1,5 +1,5 @@
 """commet driver CLI, the all-vs-all pipeline (reference Commet.py:438-601),
-PyTorch port of commet_tpu.cli.commet's classic schedule.
+PyTorch port of commet_tpu.cli.commet on one host.
 
 Given a file-of-files manifest (one line per read set,
 "name: file[,bv]; file[,bv]; ..."), it:
@@ -9,11 +9,17 @@ Given a file-of-files manifest (one line per read set,
      (Commet.py:186-240): all-in-Si, then per later set X:
      Si in (X in Si), then X in (Si in (X in Si));
   3. writes matrix_plain/percentage/normalized.csv, byte-identical to the
-     reference's (Commet.py:245-317), plus heatmap/dendrogram PNGs.
+     reference's (Commet.py:245-317), plus heatmap/dendrogram PNGs; with
+     ``--one_vs_all`` only set 1 is compared with the others and
+     vector_plain/percentage.csv are written instead (Commet.py:355-433).
 
-State flows through .bv files between steps like the reference's
-subprocess pipeline. ``--one_vs_all``, ``--jobs``/``--sge`` and multi-host
-runs are not ported yet (ROADMAP).
+Step 0 takes the amortized schedule by default (``run_amortized_rounds``):
+the index sets stay resident on the device and each query set streams once
+against all of them. ``COMMET_TPU_MULTI=0`` selects the classic rounds, which
+also run, with a printed line, where the amortized schedule cannot serve the
+sets. The outputs are the same either way. State flows through .bv files
+between steps like the reference's subprocess pipeline. ``--jobs``/``--sge``
+and multi-host runs are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -87,6 +93,54 @@ def compare_all_against(read_matrix, bv_matrix, names, out_dir, ref_id, eng):
         refine_pair(read_matrix, bv_matrix, names, out_dir, ref_id, j, eng)
 
 
+def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
+    """The transposed all-vs-all schedule: every step-0 index set S_0 ..
+    S_{end-1} is built once as a resident index, then each query set S_j
+    streams once against all earlier residents (Engine.search_multi_set),
+    and the a/b refinement steps run pairwise. Each pair's step-0 outcome
+    depends only on its own two sets, so the outputs equal the classic
+    rounds'. Returns False, after printing why, when COMMET_TPU_MULTI=0 or
+    the sets cannot be served (an index set over k or the device-memory
+    budget, reads too long for the batch geometry); the caller then runs
+    the classic rounds. Counterpart of commet_tpu's run_amortized_rounds;
+    where that tries its dense-plane cohorts, this runs the classic rounds
+    (the dense-plane path is not ported yet)."""
+    if os.environ.get("COMMET_TPU_MULTI", "1") == "0":
+        print("schedule: classic rounds (COMMET_TPU_MULTI=0)")
+        return False
+    env = os.environ.get("COMMET_TPU_RESIDENT_BUDGET")
+    budget = float(env) if env else None
+    residents = []
+    total_bytes = 0
+    for i in range(end):
+        rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
+        r = eng.build_resident(
+            rs, budget=None if budget is None else budget - total_bytes)
+        if r is None:
+            print(f"schedule: classic rounds ({names[i]} cannot stay "
+                  f"resident at k={eng.k} within the device-memory budget; "
+                  "the dense-plane cohorts are not ported yet)")
+            return False
+        total_bytes += r.device_bytes()
+        residents.append(r)
+    print(f"schedule: amortized ({end} resident indexes, {total_bytes} "
+          "device bytes)")
+    for j in range(1, len(names)):
+        targets = residents[:min(j, end)]
+        rs_q = _load_set(names[j], read_matrix[j], bv_matrix[j])
+        print(f"{names[j]} in {{{', '.join(r.name for r in targets)}}}")
+        if eng.search_multi_set(rs_q, targets, out_dir=out_dir,
+                                log_dir=out_dir) is None:
+            print(f"schedule: classic rounds ({names[j]} has reads too long "
+                  "for the stream batch geometry)")
+            return False
+    residents = targets = None  # free the device memory before refinement
+    for i in range(end):
+        for j in range(i + 1, len(names)):
+            refine_pair(read_matrix, bv_matrix, names, out_dir, i, j, eng)
+    return True
+
+
 def bv_count(path: str) -> int:
     return BitVector.read(path).nb_one()
 
@@ -154,6 +208,40 @@ def output_matrices(read_matrix, bv_matrix, names, out_dir, plots=True):
         print(f"\t\t{out_dir}matrix_{kind}.csv")
 
 
+def output_vectors(read_matrix, bv_matrix, names, out_dir):
+    """--one_vs_all outputs vector_plain.csv / vector_percentage.csv,
+    byte-identical to Commet.py:355-433, with its 'shared/reverse' cell
+    format: cell j holds set 1's reads shared with set j, then set j's
+    reads shared with set 1 (set sizes on the diagonal)."""
+    number_reads_all_sets = [sum(bv_count(b) for b in bv_matrix[i])
+                             for i in range(len(names))]
+
+    def shared(i, j):
+        if i == j:
+            return number_reads_all_sets[i]
+        return sum(bv_count(out_dir + os.path.basename(f) + "_in_"
+                            + names[j] + ".bv") for f in read_matrix[i])
+
+    cells = [(shared(0, j), shared(j, 0)) for j in range(len(names))]
+    header = "".join(";" + name for name in names)
+    with open(out_dir + "vector_plain.csv", "w") as f:
+        f.write(header + "\n" + names[0])
+        for fwd, rev in cells:
+            f.write(";" + str(fwd) + "/" + str(rev))
+        f.write("\n")
+    with open(out_dir + "vector_percentage.csv", "w") as f:
+        f.write(header + "\n" + names[0])
+        for j, (fwd, rev) in enumerate(cells):
+            v1 = 100 * fwd / float(number_reads_all_sets[0])
+            v2 = 100 * rev / float(number_reads_all_sets[j])
+            f.write(";" + py2_str_float(v1) + "/" + py2_str_float(v2))
+        f.write("\n")
+
+    print("All Commet work is done")
+    print("\t\t" + out_dir + "vector_plain.csv")
+    print("\t\t" + out_dir + "vector_percentage.csv")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Computes the filtering and the full N x N intersections "
@@ -162,7 +250,7 @@ def main(argv=None) -> int:
     parser.add_argument("--sge", action="store_true",
                         help="not yet ported (ROADMAP)")
     parser.add_argument("--one_vs_all", action="store_true",
-                        help="not yet ported (ROADMAP)")
+                        help="compare set 1 with each other set only")
     parser.add_argument("--no-plots", dest="plots", action="store_false")
     parser.add_argument("-o", "--output_directory", dest="directory",
                         default="output_commet/")
@@ -183,8 +271,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
     args = parser.parse_args(argv)
-    for flag, asked in (("--one_vs_all", args.one_vs_all),
-                        ("--sge", args.sge), ("--jobs", args.jobs != 1)):
+    for flag, asked in (("--sge", args.sge), ("--jobs", args.jobs != 1)):
         if asked:
             parser.error(f"{flag} is not yet ported (ROADMAP)")
     device = resolve_device(args.device)
@@ -211,10 +298,17 @@ def main(argv=None) -> int:
                      for line in read_matrix]
 
     eng = Engine(k=k, t=t, device=device, batch=args.batch)
-    for ref_id in range(len(read_matrix) - 1):
-        compare_all_against(read_matrix, bv_matrix, names, out_dir, ref_id,
-                            eng)
-    output_matrices(read_matrix, bv_matrix, names, out_dir, plots=args.plots)
+    end = 1 if args.one_vs_all else len(read_matrix) - 1
+    if not run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end,
+                                eng):
+        for ref_id in range(end):
+            compare_all_against(read_matrix, bv_matrix, names, out_dir,
+                                ref_id, eng)
+    if args.one_vs_all:
+        output_vectors(read_matrix, bv_matrix, names, out_dir)
+    else:
+        output_matrices(read_matrix, bv_matrix, names, out_dir,
+                        plots=args.plots)
     return 0
 
 

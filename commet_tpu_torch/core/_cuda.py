@@ -28,7 +28,12 @@ _SIGNATURES = {
     "join": {"commet_join": [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_int64, ctypes.c_void_p,
                              ctypes.c_void_p, ctypes.c_int64,
-                             ctypes.c_void_p, ctypes.c_void_p]},
+                             ctypes.c_void_p, ctypes.c_void_p],
+             "commet_join_multi": [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_void_p,
+                                   ctypes.c_void_p]},
 }
 
 _lock = threading.Lock()

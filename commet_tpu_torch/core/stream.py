@@ -6,7 +6,9 @@ Counterpart of commet_tpu/core/stream.py. Keys are whole int64 values
 (k <= 36), so the index needs no hi-bit side stream, no SENTINEL padding and
 no flag sort key: invalid windows are dropped with a mask. The join runs the
 hand-written CUDA kernel ``csrc/join.cu`` on a CUDA tensor and its plain
-PyTorch version on a CPU tensor.
+PyTorch version on a CPU tensor. The amortized schedule joins one sorted
+query stream against S indexes (``JoinSlots``) in one grouped launch of the
+same kernel (``join_membership_multi``).
 
 Per (window, strand) query the join returns:
   NONMEM (0) keya is absent from the index;
@@ -130,6 +132,21 @@ def join_membership_plain(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
     return out
 
 
+def _check_column(fn: str, name: str, x: torch.Tensor,
+                  device: torch.device) -> None:
+    if x.device != device or x.dtype != torch.int64 or x.dim() != 1 \
+            or not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be a contiguous 1-D int64 "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _check_mi(fn: str, ika: torch.Tensor, ikb: torch.Tensor, mi: int) -> None:
+    if not 0 <= mi <= min(ika.shape[0], ikb.shape[0]):
+        raise ValueError(f"{fn}: mi={mi} outside the index length "
+                         f"{ika.shape[0]}")
+
+
 def join_membership(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
                     qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     """Verdicts [M] int8 for query pairs (qa, qb) [M] int64 against the
@@ -139,14 +156,8 @@ def join_membership(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
     a CPU tensor runs join_membership_plain. The sorted query order the
     stream keeps is for the kernel's cache locality; any order is right."""
     for name, x in (("ika", ika), ("ikb", ikb), ("qa", qa), ("qb", qb)):
-        if x.device != qa.device or x.dtype != torch.int64 \
-                or x.dim() != 1 or not x.is_contiguous():
-            raise ValueError(f"join_membership: {name} must be a contiguous "
-                             f"1-D int64 tensor on {qa.device}, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if not 0 <= mi <= min(ika.shape[0], ikb.shape[0]):
-        raise ValueError(f"join_membership: mi={mi} outside the index "
-                         f"length {ika.shape[0]}")
+        _check_column("join_membership", name, x, qa.device)
+    _check_mi("join_membership", ika, ikb, mi)
     if qb.shape != qa.shape:
         raise ValueError("join_membership: qa and qb differ in shape")
     if qa.device.type == "cpu":
@@ -175,38 +186,140 @@ def join_membership(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
 join_membership.launches = 0
 
 
+class JoinSlots:
+    """The S sorted indexes one grouped join launch serves: their columns
+    (each int64, lexsorted, valid prefix [0, mi)), and on the card the
+    device tables the kernel reads, [3, S] int64 rows of ika addresses, ikb
+    addresses and mi values. Built once per group of slots; the object
+    holds the columns, so the addresses stay valid as long as the tables."""
+
+    def __init__(self, ikas, ikbs, mis):
+        ikas, ikbs, mis = list(ikas), list(ikbs), [int(m) for m in mis]
+        if not ikas or not len(ikas) == len(ikbs) == len(mis):
+            raise ValueError(f"JoinSlots: need S >= 1 equal-length ikas, "
+                             f"ikbs and mis, got {len(ikas)}, {len(ikbs)}, "
+                             f"{len(mis)}")
+        self.device = ikas[0].device
+        for s, (a, b, mi) in enumerate(zip(ikas, ikbs, mis)):
+            _check_column("JoinSlots", f"ikas[{s}]", a, self.device)
+            _check_column("JoinSlots", f"ikbs[{s}]", b, self.device)
+            _check_mi("JoinSlots", a, b, mi)
+        self.ikas, self.ikbs, self.mis = ikas, ikbs, mis
+        self.tables = None
+        if self.device.type == "cuda":
+            self.tables = torch.tensor(
+                [[a.data_ptr() for a in ikas], [b.data_ptr() for b in ikbs],
+                 mis], dtype=torch.int64).to(self.device)
+
+    def __len__(self) -> int:
+        return len(self.ikas)
+
+
+def join_membership_multi_plain(ikas, ikbs, mis, qa: torch.Tensor,
+                                qb: torch.Tensor) -> torch.Tensor:
+    """[S, M] verdicts: join_membership_plain against each index in turn."""
+    return torch.stack([join_membership_plain(a, b, mi, qa, qb)
+                        for a, b, mi in zip(ikas, ikbs, mis)])
+
+
+def join_membership_multi(slots: JoinSlots, qa: torch.Tensor,
+                          qb: torch.Tensor) -> torch.Tensor:
+    """Verdicts [S, M] int8 of the query pairs (qa, qb) [M] int64 against
+    each of the S indexes of ``slots``, row s for slot s. Counterpart of the
+    S join_membership calls of commet_tpu's _membership_stream_multi: a CUDA
+    tensor runs one launch of the grouped kernel csrc/join.cu
+    (commet_join_multi, counted in ``join_membership_multi.launches``), a
+    CPU tensor runs join_membership_multi_plain."""
+    for name, x in (("qa", qa), ("qb", qb)):
+        _check_column("join_membership_multi", name, x, slots.device)
+    if qb.shape != qa.shape:
+        raise ValueError("join_membership_multi: qa and qb differ in shape")
+    if qa.device.type == "cpu":
+        return join_membership_multi_plain(slots.ikas, slots.ikbs,
+                                           slots.mis, qa, qb)
+    if qa.device.type != "cuda":
+        raise ValueError(f"join_membership_multi: unsupported device "
+                         f"{qa.device}")
+    n_s, m = len(slots), qa.shape[0]
+    if n_s > 65535:
+        raise ValueError(f"join_membership_multi: {n_s} slots exceed the "
+                         "grid's 65535")
+    out = torch.empty((n_s, m), dtype=torch.int8, device=qa.device)
+    if m == 0:
+        return out
+    from commet_tpu_torch.core import _cuda
+    lib = _cuda.load("join")
+    tab = slots.tables
+    with torch.cuda.device(qa.device):  # the launch goes to the current card
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.commet_join_multi(
+            ctypes.c_void_p(tab[0].data_ptr()),
+            ctypes.c_void_p(tab[1].data_ptr()),
+            ctypes.c_void_p(tab[2].data_ptr()), ctypes.c_int64(n_s),
+            ctypes.c_void_p(qa.data_ptr()), ctypes.c_void_p(qb.data_ptr()),
+            ctypes.c_int64(m), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"multi join kernel launch failed: cudaError {err}")
+    join_membership_multi.launches += 1
+    return out
+
+
+join_membership_multi.launches = 0
+
+
 # --------------------------------------------------------------------------
 # The streamed probe
 # --------------------------------------------------------------------------
 
+def _sorted_queries(wk):
+    """The batch's (read, strand, window) query pairs sorted by keya, for
+    the kernel's cache locality: (sk, skb, perm), invalid windows as
+    (0, 0). (The TPU path packs payload << 2 | verdict into uint32 for a
+    second sort, which capped a batch at 2^30 keys; the unsort here scatters
+    through ``perm`` and has no such limit.)"""
+    ok2 = wk["ok"][:, None, :]
+    q = torch.where(ok2, torch.stack([wk["fa"], wk["ra"]], dim=1), 0)
+    q2 = torch.where(ok2, torch.stack([wk["fb"], wk["rb"]], dim=1), 0)
+    sk, perm = torch.sort(q.reshape(-1))
+    return sk, q2.reshape(-1)[perm], perm
+
+
 def _membership_stream(sidx: StreamIndex, wk) -> torch.Tensor:
     """Join verdicts for every (read, strand, window) key pair, [B, 2, W]
-    int8 in window order: sort the queries by keya (kernel locality), join,
-    scatter the verdicts back through the sort permutation. (The TPU path
-    packs payload << 2 | verdict into uint32 for a second sort, which capped
-    a batch at 2^30 keys; the permutation has no such limit.)"""
-    ok = wk["ok"]
-    b, w = ok.shape
-    q = torch.stack([wk["fa"], wk["ra"]], dim=1)
-    q2 = torch.stack([wk["fb"], wk["rb"]], dim=1)
-    ok2 = ok[:, None, :]
-    q = torch.where(ok2, q, 0).reshape(-1)
-    q2 = torch.where(ok2, q2, 0).reshape(-1)
-    sk, perm = torch.sort(q)
-    mem_s = join_membership(sidx.ika, sidx.ikb, sidx.mi, sk, q2[perm])
+    int8 in window order: sort, join, scatter back."""
+    b, w = wk["ok"].shape
+    sk, skb, perm = _sorted_queries(wk)
+    mem_s = join_membership(sidx.ika, sidx.ikb, sidx.mi, sk, skb)
     mem = torch.empty_like(mem_s)
     mem[perm] = mem_s
     return mem.reshape(b, 2, w)
 
 
-def _stream_verdict(ok: torch.Tensor, mem: torch.Tensor, k: int, t: int):
-    """TAGGED / UNTAGGED / AMBIG per read: greedy(CONF) >= t on either
-    strand proves tagged; greedy(CONF | CAND) < t on both proves untagged;
-    anything else is AMBIG for the exact fallback."""
+def _membership_stream_multi(slots: JoinSlots, wk) -> torch.Tensor:
+    """Join verdicts of every (slot, read, strand, window), [S, B, 2, W]
+    int8 in window order, from ONE sorted query stream: one sort, one
+    grouped join, one scatter along dim 1. Counterpart of
+    commet_tpu's _membership_stream_multi, whose 15-per-uint32 packing and
+    second sort exist only for its sort-based unsort."""
+    b, w = wk["ok"].shape
+    sk, skb, perm = _sorted_queries(wk)
+    mem_s = join_membership_multi(slots, sk, skb)
+    del sk, skb
+    mem = torch.empty_like(mem_s).index_copy_(1, perm, mem_s)
+    return mem.reshape(len(slots), b, 2, w)
+
+
+def _multi_verdicts(ok: torch.Tensor, mems: torch.Tensor, k: int, t: int):
+    """TAGGED / UNTAGGED / AMBIG [S, B] from verdicts [S, B, 2, W]:
+    greedy(CONF) >= t on either strand proves tagged; greedy(CONF | CAND)
+    < t on both proves untagged; anything else is AMBIG for the exact
+    fallback. The greedy scans run once over [S, B, W]."""
     tagged = untagged = None
     for s in range(2):
-        conf = (mem[:, s] == CONF) & ok
-        maybe = (mem[:, s] == CAND) & ok
+        mem = mems[:, :, s]
+        conf = (mem == CONF) & ok
+        maybe = (mem == CAND) & ok
         tag_s = greedy.greedy_ge(conf, k, t)
         untag_s = ~greedy.greedy_ge(conf | maybe, k, t)
         tagged = tag_s if tagged is None else tagged | tag_s
@@ -221,7 +334,8 @@ def probe_stream_codes(sidx: StreamIndex, codes: torch.Tensor, k: int,
     """[B] int8 verdicts for a batch of [B, L] codes. Counterpart of
     probe_multi_stream_codes with one index (S = 1)."""
     wk = keys.window_keys(codes, k, "both", wmax)
-    return _stream_verdict(wk["ok"], _membership_stream(sidx, wk), k, t)
+    return _multi_verdicts(wk["ok"], _membership_stream(sidx, wk)[None], k,
+                           t)[0]
 
 
 def probe_stream_clean(sidx: StreamIndex, codes2, lengths, length: int,
@@ -238,6 +352,31 @@ def probe_stream_packed(sidx: StreamIndex, codes2, valid, length: int,
     counterpart of probe_multi_stream_packed at S = 1."""
     codes = keys.unpack_codes(codes2, valid, length)
     return probe_stream_codes(sidx, codes, k, t, wmax)
+
+
+def probe_multi_stream_codes(slots: JoinSlots, codes: torch.Tensor, k: int,
+                             t: int, wmax=None) -> torch.Tensor:
+    """[S, B] int8 verdicts of a batch of [B, L] codes against every slot,
+    from one sorted query stream. Counterpart of probe_multi_stream_codes."""
+    wk = keys.window_keys(codes, k, "both", wmax)
+    return _multi_verdicts(wk["ok"], _membership_stream_multi(slots, wk), k,
+                           t)
+
+
+def probe_multi_stream_clean(slots: JoinSlots, codes2, lengths, length: int,
+                             k: int, t: int, wmax=None) -> torch.Tensor:
+    """probe_multi_stream_codes for N-free batches (2-bit words + lengths);
+    counterpart of probe_multi_stream_clean."""
+    codes = keys.unpack_codes_clean(codes2, lengths, length)
+    return probe_multi_stream_codes(slots, codes, k, t, wmax)
+
+
+def probe_multi_stream_packed(slots: JoinSlots, codes2, valid, length: int,
+                              k: int, t: int, wmax=None) -> torch.Tensor:
+    """probe_multi_stream_codes for dirty batches (2-bit words + validity
+    words); counterpart of probe_multi_stream_packed."""
+    codes = keys.unpack_codes(codes2, valid, length)
+    return probe_multi_stream_codes(slots, codes, k, t, wmax)
 
 
 # --------------------------------------------------------------------------

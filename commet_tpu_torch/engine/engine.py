@@ -14,6 +14,17 @@ Counterpart of the stream-serving part of commet_tpu/engine/engine.py:
     through the stream probe (keygen, query sort, join kernel, verdict
     sandwich), and the AMBIG residue through the exact sorted-set probe.
 
+The amortized all-vs-all schedule keeps every step-0 index set resident
+(``build_resident``) and streams each query set once against all of them
+(``search_multi_set``: one query sort, one grouped join launch per group of
+partitions, one unsort), with the same tags, counters and files as the
+pairwise calls.
+
+Batches are sized by ``stream_batch_size``: at most STREAM_BATCH reads, fewer
+when long reads would make a batch's window keys exceed what the device
+budget per batch holds; where even the floor of STREAM_MIN_BATCH reads is too
+large, search_set takes the exact probe and search_multi_set declines.
+
 Every partition is served by the sorted index whatever its fill (the JAX
 package's COMMET_TPU_STREAM=force behaviour): tags are exact either way.
 There is no CPU fallback: the engine runs on the device it is given.
@@ -36,19 +47,71 @@ from commet_tpu_torch.device import resolve_device, synchronize
 
 # reads per host batch of the exact fallback
 DEFAULT_BATCH = 4096
-# reads per device batch of the index build and the stream probe
+# reads per device batch of the index build and the stream probe, at most
 STREAM_BATCH = 65536
+# ... and at least, unless the set is smaller (commet_tpu's floor)
+STREAM_MIN_BATCH = 2048
 LENGTH_BUCKET = 32
 # device bytes per indexed k-mer: the resident StreamIndex (ika, ikb and the
 # sb/sc/sd sets, 5 x int64) plus the build's sort workspace
 INDEX_BYTES_PER_KMER = 40
 BUILD_BYTES_PER_KMER = 96
+# Device bytes a stream batch may hold, and what it holds per window key
+# (one read x strand x window). Keygen keeps about a dozen [B, L] int64
+# tensors at once (codes, the valid/a/b bit planes, the binary-lifting
+# operands, fa/fb/ra/rb); the query sort then holds the stacked and masked
+# query pairs, the sorted keys, the permutation and the gathered keyb (8 B
+# each) plus the radix sort's double buffers. Measured peak: 80 B per key
+# for a 65,536-read batch of 100 bp reads at k = 32, at S = 1 and S = 3
+# (NVIDIA H100 80GB HBM3, chip_smoke.py); 128 B leaves room. Each slot of a
+# grouped join adds its int8 verdicts, sorted and unsorted, and the greedy
+# bounds' int64 positions over [S, B, W]: 16 B per key and slot. At 100 bp
+# reads, k = 32 and 32 slots a 65,536-read batch (9.0M keys) is allowed
+# 5.8 GB.
+# (commet_tpu's 2^30-key cap exists for its uint32 packed unsort; at int64
+# it would be more than the card holds.)
+STREAM_BATCH_BYTES = 8 << 30
+STREAM_BYTES_PER_KEY = 128
+SLOT_BYTES_PER_KEY = 16
+# widest k a resident index serves (commet_tpu's multi-index domain)
+RESIDENT_MAX_K = 34
 
 
 def max_kmer_for(k: int) -> int:
     """Partition cap: (unsigned long)(1e9 / 2^(33-k))
     (reference index_and_search.cpp:73,146)."""
     return int(1000000000.0 / (2.0 ** (33 - k)))
+
+
+def stream_max_keys(slots: int = 1) -> int:
+    """Window keys one stream batch may hold, joined against ``slots``."""
+    return STREAM_BATCH_BYTES // (STREAM_BYTES_PER_KEY
+                                  + slots * SLOT_BYTES_PER_KEY)
+
+
+def stream_batch_size(n_reads: int, wmax: int,
+                      slots: int = 1) -> Optional[int]:
+    """Reads per stream batch for ``n_reads`` reads of up to ``wmax``
+    windows (every batch is padded to the longest read): STREAM_BATCH,
+    halved while the batch's window keys (reads x 2 strands x wmax) exceed
+    stream_max_keys, down to the floor of STREAM_MIN_BATCH reads; None when
+    even the floor exceeds it. Counterpart of the geometry of commet_tpu's
+    Engine._search_stream_only and search_multi_set."""
+    cap = stream_max_keys(slots)
+    if STREAM_MIN_BATCH * 2 * wmax > cap:
+        return None
+    size = STREAM_BATCH
+    while size > STREAM_MIN_BATCH and size * 2 * wmax > cap:
+        size = max(size // 2, STREAM_MIN_BATCH)
+    return max(1, min(n_reads, size))
+
+
+def row_batch_size(limit: int, wmax: int) -> int:
+    """Reads per batch, at most ``limit``, that keeps a batch's window keys
+    within stream_max_keys (one read at the least): the batches of the
+    exact fallback, and of an index build the stream geometry cannot
+    serve."""
+    return max(1, min(limit, stream_max_keys() // (2 * wmax)))
 
 
 def _pad_length(lmax: int, k: int) -> int:
@@ -108,6 +171,28 @@ class EncodedSet:
             c2[rows], vd[rows], ln[rows] = sc2, svd, sln
             clean &= not dirty
         return c2, vd, ln, clean
+
+
+@dataclass
+class ResidentIndex:
+    """One index read set kept on the device as the sorted index of each of
+    its max_kmer partitions, for the amortized all-vs-all schedule: each
+    query set's sorted key stream is made once per batch and joined against
+    every resident index (reference Commet.py:186-240 searches a query set
+    against up to N-1 index sets). Counterpart of commet_tpu's
+    ResidentIndex. With whole int64 keys every partition keeps its exact
+    sets (sb/sc/sd) on the device for every k, so there are no host-side
+    exact sets."""
+
+    name: str
+    partitions: List[stream.StreamIndex]
+    nb_indexed: int
+    total_kmers: int
+    build_seconds: float
+
+    def device_bytes(self) -> int:
+        return sum(x.numel() * x.element_size() for sx in self.partitions
+                   for x in (sx.ika, sx.ikb, sx.sb, sx.sc, sx.sd))
 
 
 class Engine:
@@ -227,12 +312,17 @@ class Engine:
         return parts
 
     # ---------------------------------------------------------------- index
+    def _free_bytes(self) -> int:
+        """Device bytes free to allocate: the card's free memory plus what
+        PyTorch's allocator holds unused."""
+        free, _total = torch.cuda.mem_get_info(self.device)
+        return free + (torch.cuda.memory_reserved(self.device)
+                       - torch.cuda.memory_allocated(self.device))
+
     def _check_build_memory(self, n_kmers: int) -> None:
         if self.device.type != "cuda":
             return
-        free, _total = torch.cuda.mem_get_info(self.device)
-        free += (torch.cuda.memory_reserved(self.device)
-                 - torch.cuda.memory_allocated(self.device))
+        free = self._free_bytes()
         need = n_kmers * BUILD_BYTES_PER_KMER
         if need > free:
             raise MemoryError(
@@ -248,10 +338,14 @@ class Engine:
         complete windows. Counterpart of Engine.build_planes ->
         _finish_index_keys on the stream branch (no bit planes)."""
         self._check_build_memory(n_kmers)
-        lpad = _pad_length(int(enc.read_lengths(idx).max(initial=1)), self.k)
+        lmax = int(enc.read_lengths(idx).max(initial=1))
+        lpad = _pad_length(lmax, self.k)
+        wmax = max(1, lmax - self.k + 1)
+        size = (stream_batch_size(len(idx), wmax)
+                or row_batch_size(STREAM_BATCH, wmax))
         ka, kb = [], []
         for _sl, c2, vd, ln, clean in self._batched_packed(
-                enc, idx, lpad, STREAM_BATCH):
+                enc, idx, lpad, size):
             if clean:
                 codes = keys.unpack_codes_clean(self._up(c2), self._up(ln),
                                                 lpad)
@@ -268,15 +362,19 @@ class Engine:
         """Tags [len(idx)] bool of reads ``idx`` against one partition's
         index: the stream probe for every read, then the exact sorted-set
         probe for the AMBIG residue. Counterpart of Engine.search_set ->
-        _search_stream_only."""
+        _search_stream_only: when the batch geometry cannot serve the reads
+        (stream_batch_size is None), every read takes the exact probe."""
         tags = np.zeros(len(idx), dtype=bool)
         lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
+        size = stream_batch_size(len(idx), wmax)
+        if size is None:
+            return self._search_stream_fallback(sidx, enc, idx, lpad, wmax)
         pending = []  # (slice, device verdicts): fetched after dispatching
         self._io_reset()
         for sl, c2, vd, ln, clean in self._batched_packed(
-                enc, idx, lpad, STREAM_BATCH):
+                enc, idx, lpad, size):
             if clean:
                 verdict = stream.probe_stream_clean(
                     sidx, self._up(c2), self._up(ln), lpad, self.k, self.t,
@@ -305,10 +403,12 @@ class Engine:
                                 enc: EncodedSet, rows_idx: np.ndarray,
                                 lpad: int, wmax: int) -> np.ndarray:
         """Exact tags of the stream's AMBIG residue through the four sorted
-        value sets (every k <= 36: the keys are whole int64 values)."""
+        value sets (every k <= 36: the keys are whole int64 values), in
+        batches of at most ``batch`` reads and stream_max_keys window keys."""
         tags = np.zeros(len(rows_idx), dtype=bool)
-        for start in range(0, len(rows_idx), self.batch):
-            rows = rows_idx[start:start + self.batch]
+        size = row_batch_size(self.batch, wmax)
+        for start in range(0, len(rows_idx), size):
+            rows = rows_idx[start:start + size]
             c2, vd, _ln, _clean = enc.gather_packed(rows, lpad)
             got = stream.probe_exact_sets(
                 sidx, self._up(keys.host_u32(c2)),
@@ -373,6 +473,159 @@ class Engine:
                                 counters[q.name])
             if save and out_dir is not None:
                 q.save_result_bvs(out_dir, index_set.name)
+        return counters
+
+    # ------------------------------------------- amortized all-vs-all step 0
+    def _resident_budget(self, n_kmers: int,
+                         budget: Optional[float]) -> float:
+        """Device bytes a new resident index of ``n_kmers`` may take: the
+        least of the caller's ``budget``, COMMET_TPU_RESIDENT_BUDGET when
+        set, and on the card the free memory less the build workspace of
+        this set and one stream batch's workspace for the searches."""
+        limits = [] if budget is None else [budget]
+        env = os.environ.get("COMMET_TPU_RESIDENT_BUDGET")
+        if env:
+            limits.append(float(env))
+        if self.device.type == "cuda":
+            limits.append(self._free_bytes() - n_kmers * BUILD_BYTES_PER_KMER
+                          - STREAM_BATCH_BYTES)
+        return min(limits, default=float("inf"))
+
+    def build_resident(self, index_set: ReadSet,
+                       budget: Optional[float] = None
+                       ) -> Optional[ResidentIndex]:
+        """Build every max_kmer partition of ``index_set`` as a resident
+        StreamIndex (build_index per partition). Returns None, before any
+        device allocation, when k > RESIDENT_MAX_K or the resident bytes
+        (INDEX_BYTES_PER_KMER per k-mer) exceed _resident_budget; the caller
+        then takes the pairwise schedule. Counterpart of build_resident."""
+        if self.k > RESIDENT_MAX_K:
+            return None
+        t0 = time.time()
+        enc = EncodedSet(index_set)
+        elig = index_set.eligible()
+        kcounts = (self.count_kmers(enc, elig) if len(elig)
+                   else np.zeros(0, dtype=np.int64))
+        total = int(kcounts.sum())
+        if total * INDEX_BYTES_PER_KMER > self._resident_budget(total, budget):
+            return None
+        parts = self.partitions(kcounts)
+        sxs = [self.build_index(enc, elig[part], int(kcounts[part].sum()))
+               for part in parts]
+        synchronize(self.device)
+        return ResidentIndex(index_set.name, sxs,
+                             int(sum(len(p) for p in parts)), total,
+                             time.time() - t0)
+
+    def search_multi_set(self, query_set: ReadSet,
+                         residents: List[ResidentIndex],
+                         out_dir: Optional[str] = None,
+                         log_dir: Optional[str] = None,
+                         save: bool = True, max_slots: int = 32
+                         ) -> Optional[Dict[str, Dict[str, float]]]:
+        """Classify ``query_set`` against every resident index with one
+        sorted query stream per batch, joined against a group of up to
+        ``max_slots`` slots (one slot per (resident, partition)) by one
+        grouped kernel launch. Writes the same result .bv's, logs and
+        counters as len(residents) pairwise index_and_search calls, keyed by
+        resident name: per-partition verdicts OR-ed across partitions, each
+        slot's AMBIG residue through the exact sorted-set probe on the
+        device (every k: the keys are whole int64 values). Returns None when
+        the batch geometry cannot serve the query set (stream_batch_size),
+        so run_amortized_rounds runs the classic rounds. Counterpart of
+        search_multi_set."""
+        t_start = time.time()
+        enc_q = EncodedSet(query_set)
+        cand = query_set.untagged_eligible()
+        slots = [(ri, sx) for ri, r in enumerate(residents)
+                 for sx in r.partitions]
+        tags_slot = np.zeros((len(slots), len(cand)), dtype=bool)
+        fb_time = [0.0] * len(residents)  # per-resident exact-fallback time
+        if len(cand) and slots:
+            lmax = int(enc_q.read_lengths(cand).max(initial=1))
+            lpad = _pad_length(lmax, self.k)
+            wmax = max(1, lmax - self.k + 1)
+            size = stream_batch_size(len(cand), wmax,
+                                     min(len(slots), max_slots))
+            if size is None:
+                return None
+            self._io_reset()
+            fetch_s = 0.0
+            for base in range(0, len(slots), max_slots):
+                group = slots[base:base + max_slots]
+                table = stream.JoinSlots([sx.ika for _ri, sx in group],
+                                         [sx.ikb for _ri, sx in group],
+                                         [sx.mi for _ri, sx in group])
+                pending = []  # (slice, device verdicts [S, b])
+                for sl, c2, vd, ln, clean in self._batched_packed(
+                        enc_q, cand, lpad, size):
+                    if clean:
+                        v = stream.probe_multi_stream_clean(
+                            table, self._up(c2), self._up(ln), lpad, self.k,
+                            self.t, wmax)
+                    else:
+                        v = stream.probe_multi_stream_packed(
+                            table, self._up(c2), self._up(vd), lpad, self.k,
+                            self.t, wmax)
+                    pending.append((sl, v))
+                amb_slot = [[] for _ in group]
+                t_fetch = time.time()
+                for sl, v in pending:
+                    got = v.cpu().numpy()
+                    tags_slot[base:base + len(group), sl] = \
+                        got == stream.VERDICT_TAGGED
+                    for s in range(len(group)):
+                        amb_slot[s].append(np.arange(sl.start, sl.stop)[
+                            got[s] == stream.VERDICT_AMBIG])
+                fetch_s += time.time() - t_fetch
+                for s, (ri, sx) in enumerate(group):
+                    amb = np.concatenate(amb_slot[s])
+                    if not len(amb):
+                        continue
+                    t_fb = time.time()
+                    tags_slot[base + s, amb] = self._search_stream_fallback(
+                        sx, enc_q, cand[amb], lpad, wmax)
+                    fb_time[ri] += time.time() - t_fb
+            self._io_stash(fetch_s)
+        return self._multi_finish(query_set, residents, cand, tags_slot,
+                                  fb_time, t_start, out_dir, log_dir, save)
+
+    def _multi_finish(self, query_set: ReadSet, residents, cand, tags_slot,
+                      fb_time, t_start, out_dir, log_dir, save):
+        """Per-resident counters with the pairwise semantics, logs and
+        result .bv's. ``searched`` is the candidates less the reads tagged
+        in partitions before the last one (what the pairwise path's
+        found-read skipping leaves for its last partition; 0 for a resident
+        without partitions, as pairwise); ``search_time`` is an equal share
+        of the joint probe plus the resident's own fallback time. The query
+        set's tags are shared across residents: each resident's are set,
+        saved and cleared before the next. Counterpart of _multi_finish."""
+        joint = max(0.0, time.time() - t_start - sum(fb_time))
+        counters = {}
+        si = 0
+        for ri, r in enumerate(residents):
+            tr = tags_slot[si:si + len(r.partitions)]
+            si += len(r.partitions)
+            tags = tr.any(axis=0)
+            c = {
+                "indexed": r.nb_indexed,
+                "searched": (len(cand) - int(tr[:-1].any(axis=0).sum())
+                             if len(tr) else 0),
+                "shared": int(tags.sum()),
+                "index_time": r.build_seconds,
+                "search_time": joint / len(residents) + fb_time[ri],
+                "total_time": time.time() - t_start,
+            }
+            counters[r.name] = c
+            if log_dir is not None:
+                self._write_log(log_dir, query_set.name, r.name, c)
+            if save and out_dir is not None:
+                hit = cand[tags]
+                if len(hit):
+                    query_set.tag(hit[:, 0], hit[:, 1])
+                query_set.save_result_bvs(out_dir, r.name)
+                for bv in query_set.result_bvs:
+                    bv.set_all_false()
         return counters
 
     @staticmethod

@@ -1,6 +1,7 @@
 """State carried across from the JAX package: a commet_tpu StreamIndex, given
-as numpy arrays, becomes the port's StreamIndex, so both packages can be
-held against each other on the same index."""
+as numpy arrays, becomes the port's StreamIndex, and a commet_tpu
+ResidentIndex the port's ResidentIndex, so both packages can be held against
+each other on the same index."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from commet_tpu_torch.core.stream import (StreamIndex,
                                           index_from_sorted_pairs,
                                           lexsort_pairs)
+from commet_tpu_torch.engine.engine import ResidentIndex
 
 
 def stream_index_from_jax(ika, ikb, ihib, mi, sa=None, sb=None, sc=None,
@@ -37,3 +39,15 @@ def stream_index_from_jax(ika, ikb, ihib, mi, sa=None, sb=None, sc=None,
     if sb is not None:
         sets = tuple(torch.from_numpy(prefix(s)).to(dev) for s in (sb, sc, sd))
     return index_from_sorted_pairs(ika_t, ikb_t, sets)
+
+
+def resident_from_jax(jres, device="cpu"):
+    """The port's ResidentIndex holding the partitions of a commet_tpu
+    ResidentIndex (each read as numpy arrays through stream_index_from_jax;
+    its host-side exact sets are not needed: every port partition keeps
+    sb/sc/sd on the device)."""
+    parts = [stream_index_from_jax(sx.ika, sx.ikb, sx.ihib, sx.mi, sx.sa,
+                                   sx.sb, sx.sc, sx.sd, device=device)
+             for sx in jres.partitions]
+    return ResidentIndex(jres.name, parts, int(jres.nb_indexed),
+                         int(jres.total_kmers), float(jres.build_seconds))

@@ -114,8 +114,7 @@ def test_commet_driver_matches_jax(tmp_path):
     assert all(int(v) > 0 for v in plain[1].split(";")[1:])
 
 
-@pytest.mark.parametrize("flags", [["--one_vs_all"], ["--sge"],
-                                   ["--jobs", "2"]])
+@pytest.mark.parametrize("flags", [["--sge"], ["--jobs", "2"]])
 def test_commet_unported_options_fail(tmp_path, capsys, flags):
     """Options outside this slice exit non-zero and name the ROADMAP."""
     with pytest.raises(SystemExit) as exc:

@@ -1,15 +1,20 @@
-"""Card-only tests of the PyTorch port: the hand-written CUDA join kernel
-against its plain PyTorch version, and the engine on the card against the
-engine on the CPU. Each skips without a CUDA card. The file imports no JAX,
+"""Card-only tests of the PyTorch port: the hand-written CUDA join kernels
+(single-index and grouped) against their plain PyTorch versions, and the
+engine on the card against the engine on the CPU. Each skips without a CUDA
+card. The file imports no JAX,
 so on a machine without JAX it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+from commet_tpu.io.reads import ReadSet
 
 from commet_tpu_torch.core import stream as tstream
 from commet_tpu_torch.engine import engine as tengine
@@ -72,3 +77,111 @@ def test_engine_cuda_matches_cpu(tmp_path, monkeypatch, cuda_device):
     _c, want = run_engine(tengine.Engine(k=21, t=2, device="cpu"), idx_fa,
                           qry_fas, str(tmp_path / "cpu"))
     assert got == want
+
+
+@pytest.mark.gpu
+def test_join_multi_kernel_matches_plain_on_card(cuda_device):
+    """The grouped kernel (commet_join_multi) against
+    join_membership_multi_plain: slots of different sizes and mi, an empty
+    prefix (mi = 0), the all-G/T key at k = 32, sorted and unsorted
+    queries. Exact equality."""
+    k = 32
+    rng = np.random.default_rng(90)
+    idx = [index_pairs(rng, k, n) for n in (150_000, 40_000, 90_000)]
+    top = (1 << k) - 1
+    idx[0][0][0], idx[0][1][0] = top, top  # the all-G/T pair
+    cols = [tstream.finalize_index([torch.from_numpy(a).to(cuda_device)],
+                                   [torch.from_numpy(b).to(cuda_device)])
+            for a, b in idx]
+    qa, qb = query_pairs(rng, k, *idx[0], 200_000)
+    half = len(qa) // 2
+    qa[half:], qb[half:] = query_pairs(rng, k, *idx[1], len(qa) - half)
+    qa[0], qb[0] = top, top
+    qa_t = torch.from_numpy(qa).to(cuda_device)
+    qb_t = torch.from_numpy(qb).to(cuda_device)
+    order = torch.argsort(qa_t)
+    mis = [cols[0].mi, 0, cols[2].mi // 3, cols[1].mi]
+    picks = [cols[0], cols[1], cols[2], cols[1]]
+    slots = tstream.JoinSlots([c.ika for c in picks], [c.ikb for c in picks],
+                              mis)
+    for x, y in ((qa_t, qb_t), (qa_t[order], qb_t[order])):
+        before = tstream.join_membership_multi.launches
+        got = tstream.join_membership_multi(slots, x, y)
+        torch.cuda.synchronize()
+        assert tstream.join_membership_multi.launches == before + 1
+        want = tstream.join_membership_multi_plain(
+            slots.ikas, slots.ikbs, slots.mis, x, y)
+        assert got.shape == (4, len(qa))
+        assert torch.equal(got, want)
+        assert int(got[1].max()) == tstream.NONMEM
+        gt = (x == top) & (y == top)
+        assert int(gt.sum()) >= 1
+        assert (got[0][gt] == tstream.CONF).all()
+        for s in (0, 3):
+            assert set(torch.unique(got[s]).tolist()) == {
+                tstream.NONMEM, tstream.CAND, tstream.CONF}
+
+
+@pytest.mark.gpu
+def test_join_multi_rejects_bad_inputs(cuda_device):
+    x = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):  # mismatched S
+        tstream.JoinSlots([x, x], [x], [8, 8])
+    with pytest.raises(ValueError):
+        tstream.JoinSlots([x], [x], [9])  # mi past the index
+    with pytest.raises(ValueError):
+        tstream.JoinSlots([x, x.to(torch.int32)], [x, x], [8, 8])
+    with pytest.raises(ValueError):
+        tstream.JoinSlots([x, x.cpu()], [x, x], [8, 8])
+    slots = tstream.JoinSlots([x], [x], [8])
+    with pytest.raises(ValueError):
+        tstream.join_membership_multi(slots, x.cpu(), x.cpu())
+    with pytest.raises(ValueError):
+        tstream.join_membership_multi(slots, x.to(torch.int32), x)
+    with pytest.raises(ValueError):
+        tstream.join_membership_multi(slots, x, x[:4])
+
+
+@pytest.mark.gpu
+def test_search_multi_set_cuda_matches_cpu(tmp_path, monkeypatch,
+                                           cuda_device):
+    """search_multi_set on the card (grouped kernel, several batches, two
+    slot groups) and on the CPU: identical bytes, log lines and counters."""
+    paths, qrys = [], []
+    for s in range(3):
+        (tmp_path / f"s{s}").mkdir()
+        idx_fa, qry_fas, _ = make_fastas(tmp_path / f"s{s}", 500 + s, 21,
+                                         0.02)
+        paths.append(idx_fa)
+        qrys += qry_fas
+    qry = qrys[0]  # holds fragments of I0
+    monkeypatch.setattr(tengine, "STREAM_BATCH", 64)
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        eng = tengine.Engine(k=21, t=2, device=dev, max_kmer=2000)
+        res = []
+        for s, p in enumerate(paths):
+            rs = ReadSet(f"I{s}")
+            rs.add_file(p)
+            res.append(eng.build_resident(rs))
+        assert sum(len(r.partitions) for r in res) > 3
+        out = str(tmp_path / str(dev))
+        os.makedirs(out)
+        q = ReadSet("Q")
+        q.add_file(qry)
+        before = tstream.join_membership_multi.launches
+        c = eng.search_multi_set(q, res, out_dir=out, log_dir=out,
+                                 max_slots=3)
+        if dev != "cpu":
+            assert tstream.join_membership_multi.launches > before + 2
+        blobs = {}
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name), "rb") as f:
+                data = f.read()
+            blobs[name] = data.splitlines()[-1] if name.endswith(".log") \
+                else data
+        got[str(dev)] = ({n: {f: v[f] for f in ("indexed", "searched",
+                                                "shared")}
+                          for n, v in c.items()}, blobs)
+    assert got[str(cuda_device)] == got["cpu"]
+    assert got["cpu"][0]["I0"]["shared"] > 0

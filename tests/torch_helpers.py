@@ -1,5 +1,6 @@
 """Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py):
-reads made from a numpy seed, encoded and packed for both packages."""
+reads made from a numpy seed, encoded and packed for both packages. Imports
+no JAX (the card-only tests use it on a machine without one)."""
 
 import os
 
@@ -8,6 +9,7 @@ import numpy as np
 from commet_tpu.io.reads import CODE_LUT, ReadSet
 
 U32 = 0xFFFFFFFF
+LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
 BASES = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
 COMP = bytes.maketrans(b"ACGTNacgtn", b"TGCANtgcan")
 
@@ -126,3 +128,56 @@ def run_engine(engine, idx_fa, qry_fas, out):
         with open(os.path.join(out, f"Q{qi}_in_I.log")) as f:
             blobs[f"Q{qi}.log"] = f.read().splitlines()[-1]
     return counters, blobs
+
+
+def force_jax_stream(monkeypatch):
+    """commet_tpu's stream probe forced on (the Pallas join in interpret
+    mode on the CPU), with its self-check cache emptied."""
+    import commet_tpu.engine.engine as jengine
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
+    monkeypatch.setattr(jengine, "_STREAM_SELFCHECK", {})
+
+
+def read_set(name, *paths):
+    rs = ReadSet(name)
+    for p in paths:
+        rs.add_file(p)
+    return rs
+
+
+def file_bytes(paths):
+    """{basename: bytes} of the files."""
+    out = {}
+    for p in sorted(paths):
+        with open(p, "rb") as f:
+            out[os.path.basename(p)] = f.read()
+    return out
+
+
+def last_line(path):
+    with open(path) as f:
+        return f.read().splitlines()[-1]
+
+
+def long_seq(rng, n):
+    """n random ACGT bases."""
+    return bytes(LUT[rng.integers(0, 4, n)])
+
+
+def multi_sets(tmp_path, seed, k, n_sets=3, n_idx=50, n_qry=120):
+    """Index fastas idx0.fa ..; a query fasta whose reads hold 2k fragments
+    of the first set (even reads) and of the last set (odd reads)."""
+    rng = np.random.default_rng(seed)
+    idx = []
+    paths = []
+    for s in range(n_sets):
+        seqs = random_seqs(rng, n_idx, 60, 90, n_frac=0.01)
+        idx.append(seqs)
+        paths.append(str(tmp_path / f"idx{s}.fa"))
+        write_fasta(paths[-1], seqs)
+    qry = random_seqs(rng, n_qry, 60, 90, n_frac=0.01)
+    implant(rng, idx[0], qry, k, span=2)
+    implant(rng, idx[-1], qry, k, span=2, start=1)
+    qpath = str(tmp_path / "qry.fa")
+    write_fasta(qpath, qry)
+    return paths, qpath
