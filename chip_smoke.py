@@ -5,32 +5,55 @@
 
 Phases, each printing one line with its seconds:
   1. card: the GPU's name and power limit (nvidia-smi) and torch's name;
-  2. build: the hand-written join kernels (csrc/join.cu: commet_join and
-     commet_join_multi) from commet_tpu_torch/core/csrc/;
+  2. build: every hand-written kernel from commet_tpu_torch/core/csrc/
+     (join.cu: commet_join, commet_join_multi; planes.cu:
+     commet_build_planes, commet_probe_planes, commet_probe_planes_multi),
+     one nvcc per source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows); verdicts must be
      identical; both times by CUDA events;
   4. golden: the port's index_and_search CLI on tests/data (qa.fq.gz indexed,
-     qb.fq searched, k=21, t=2) must reproduce tests/golden/unit/fq/, the
-     C++ reference's payload and counters;
+     qb.fq searched, k=21, t=2: 3.4% fill, so the plane route) must
+     reproduce tests/golden/unit/fq/, the C++ reference's payload and
+     counters;
   5. multi kernel: the grouped join kernel on three 64M-pair indexes (phase
      3's index and two more that share part of its pairs and keys) against
      phase 3's 9M sorted queries; verdicts must equal its plain version's;
      the kernel, the plain version and three single-index launches timed by
      CUDA events; then one 65,536-read probe batch against the three
      indexes, its stages timed and its peak device bytes per window key;
-  6. main path: the port's commet driver (default, amortized schedule,
-     k=32, t=2) on four 1M-read x 100 bp fasta sets made from a numpy seed:
-     sets 2 and 3 carry 64 bp fragments of set 1 in half their reads, set 4
-     fragments of set 2's other reads, 1% of reads hold an N. The driver must
-     say it took the amortized schedule, join S = 3 slots for set 4, launch
-     both kernels, and match the shared counts known from the construction
+  6. main path (sorted indexes): the port's commet driver (default,
+     amortized schedule, k=32, t=2) on four 1M-read x 100 bp fasta sets
+     made from a numpy seed: sets 2 and 3 carry 64 bp fragments of set 1 in
+     half their reads, set 4 fragments of set 2's other reads, 1% of reads
+     hold an N; about 1.6% fill, under the gate. The driver must say it took
+     the amortized schedule, join S = 3 slots for set 4, launch both join
+     kernels, and match the shared counts known from the construction
      against set 1 (slot 0) and, for set 4, against set 2 (slot 1);
   7. schedules: on four 200k-read sets, the amortized and the classic
      (COMMET_TPU_MULTI=0) driver write byte-identical .bv and matrix files,
      and --one_vs_all's vector_plain.csv cells equal
-     matrix_plain[0][j]/matrix_plain[j][0].
+     matrix_plain[0][j]/matrix_plain[j][0];
+  8. routes: the same sets with COMMET_TPU_STREAM=0 (every partition on the
+     planes) and =force (every partition on the sorted index) write the
+     default run's files byte for byte; the planes run must launch every
+     plane kernel, the sorted run none;
+  9. plane kernels at k=33 (4 GiB plane sets): the build kernel against its
+     plain version on one 65,536-read batch (word-for-word equal planes),
+     the planes then filled from 4M random reads; the probe of a 65,536-read
+     batch (a third holding 66 bp fragments of indexed reads) against its
+     plain version (equal tags); the grouped probe at S = 3 against its
+     plain version and three single probes; all timed by CUDA events;
+ 10. planes main path: commet -k 33 -t 2 (COMMET's defaults) on four sets of
+     4M reads x 100 bp made as in phase 6 with 66 bp fragments, every
+     fragment N-free (the 1% N reads are drawn among the reads that hold or
+     give none); 272M k-mers per set, 3.2% fill, above the gate, so step 0
+     runs the plane cohorts (three 4 GiB residents). The driver must say so,
+     probe S = 3 slots for set 4, launch every plane kernel, and match the
+     known shared counts.
+Each main path runs with every kernel's launch count set to 0 just before
+it and read just after.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -62,6 +85,15 @@ FRAG = 2 * K
 JOIN_SOURCE = "commet_tpu_torch/core/csrc/join.cu"
 JOIN_REPLACES = "commet_tpu/core/stream.py:67"
 JOIN_MULTI_REPLACES = "commet_tpu/core/stream.py:548"
+PLANES_SOURCE = "commet_tpu_torch/core/csrc/planes.cu"
+BUILD_REPLACES = "commet_tpu/core/kernels.py:716"
+PROBE_REPLACES = "commet_tpu/core/kernels.py:405"
+PROBE_MULTI_REPLACES = "commet_tpu/core/kernels.py:604"
+# the dense-plane phases: COMMET's default k, 4 GiB plane sets
+PLANE_K = 33
+PLANE_BATCH = 65536
+PLANE_FILL_READS = 4_000_000
+PLANE_SET_READS = 4_000_000
 
 
 def log(msg: str) -> None:
@@ -250,6 +282,184 @@ def phase_multi_kernel(device, rng, kern):
             "bytes_per_key_s1": peak1 / n_keys}
 
 
+def _pack_codes(codes: np.ndarray) -> np.ndarray:
+    """[n, L] codes 0..3 -> [n, ceil(L/16)] uint32 2-bit words, base p at
+    bits 2*(p%16) of word p/16."""
+    n, length = codes.shape
+    w = -(-length // 16)
+    c = np.zeros((n, w * 16), dtype=np.uint32)
+    c[:, :length] = codes
+    shifts = 2 * np.arange(16, dtype=np.uint32)
+    return np.bitwise_or.reduce(c.reshape(n, w, 16) << shifts, axis=2)
+
+
+def _unpack_codes(words: np.ndarray, length: int) -> np.ndarray:
+    shifts = 2 * np.arange(16, dtype=np.uint32)
+    codes = (words[:, :, None] >> shifts) & 3
+    return codes.reshape(len(words), -1)[:, :length].astype(np.uint8)
+
+
+def _events_ms(fns) -> float:
+    """Milliseconds of running every fn in ``fns`` once, by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for fn in fns:
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _plane_fill(pl, k: int) -> float:
+    """Share of plane A's 2^k bits that are set (a popcount by bit tricks
+    over int64 chunks of the uint32 words)."""
+    import torch
+    from commet_tpu_torch.core import planes
+    w = planes.plane_words(k)
+    ones = 0
+    for start in range(0, w, 1 << 26):
+        x = pl[start:min(w, start + (1 << 26))].to(torch.int64) & 0xFFFFFFFF
+        x = x - ((x >> 1) & 0x55555555)
+        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+        x = (x + (x >> 4)) & 0x0F0F0F0F
+        ones += int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+    return ones / float(w * 32)
+
+
+def phase_plane_kernels(device, gen_seed: int):
+    """The plane kernels at k = 33 (4 GiB plane sets) against their plain
+    versions: the build on one 65,536-read x 100 bp batch (word-for-word
+    equal planes), then timed on more batches into both plane sets; the
+    kernel's set then filled from 4M random reads (272M k-mers); the probe
+    of one 65,536-read batch, a third of whose reads hold a 66 bp fragment
+    of an indexed read, kernel vs plain (equal tags, every fragment read
+    tagged); the grouped probe at S = 3 vs its plain version and vs three
+    single launches."""
+    import torch
+    from commet_tpu_torch.core import planes
+    k, n, lpad = PLANE_K, PLANE_BATCH, 128
+    gen = torch.Generator(device=device)
+    gen.manual_seed(gen_seed)
+    words = torch.randint(-2 ** 31, 2 ** 31, (PLANE_FILL_READS, lpad // 16),
+                          dtype=torch.int32, device=device, generator=gen)
+    lengths = torch.full((n,), READ_LEN, dtype=torch.int32, device=device)
+    batches = [words[i:i + n] for i in range(0, PLANE_FILL_READS, n)]
+
+    def build(pl, c2):
+        return planes.build_planes(pl, c2, lengths[:len(c2)], True, lpad, k)
+
+    def build_plain(pl, c2):
+        return planes.build_planes_plain(pl, c2, lengths[:len(c2)], True,
+                                         lpad, k)
+
+    kern = planes.alloc_planes(k, device)
+    plain = planes.alloc_planes(k, device)
+    build(kern, batches[0])
+    build_plain(plain, batches[0])
+    torch.cuda.synchronize()
+    if not torch.equal(kern, plain):
+        raise AssertionError(f"build kernel differs from its plain version "
+                             f"in {int((kern != plain).sum())} words")
+    reps = 4  # fresh batches: each call sets new bits, as a build does
+    ms = _events_ms([lambda b=b: build(kern, b) for b in batches[1:1 + reps]])
+    plain_ms = _events_ms([lambda b=b: build_plain(plain, b)
+                           for b in batches[1:1 + reps]])
+    if not torch.equal(kern, plain):
+        raise AssertionError("build kernel differs from its plain version "
+                             "after the timed batches")
+    build_err = int((kern != plain).sum())
+    t0 = time.perf_counter()
+    for b in batches[1 + reps:]:
+        build(kern, b)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill = _plane_fill(kern, k)
+
+    # the probe batch: random reads, a third holding a 66 bp fragment of an
+    # indexed read (the reads are N-free: lengths carry the validity)
+    rng = np.random.default_rng(gen_seed)
+    qcodes = rng.integers(0, 4, (n, READ_LEN), dtype=np.uint8)
+    third = n // 3
+    donors = rng.integers(0, PLANE_FILL_READS, third)
+    dcodes = _unpack_codes(words[torch.from_numpy(donors).to(device)]
+                           .cpu().numpy().view(np.uint32), READ_LEN)
+    frag = 2 * k
+    src = rng.integers(0, READ_LEN - frag + 1, third)
+    dst = rng.integers(0, READ_LEN - frag + 1, third)
+    off = np.arange(frag)
+    qcodes[np.arange(third)[:, None], dst[:, None] + off] = \
+        dcodes[np.arange(third)[:, None], src[:, None] + off]
+    qc2 = torch.from_numpy(_pack_codes(np.pad(
+        qcodes, ((0, 0), (0, lpad - READ_LEN)))).view(np.int32)).to(device)
+
+    def probe(pl):
+        return planes.probe_planes(pl, qc2, lengths, True, lpad, k, T,
+                                   READ_LEN - k + 1)
+
+    def probe_plain(pl):
+        return planes.probe_planes_plain(pl, qc2, lengths, True, lpad, k, T,
+                                         READ_LEN - k + 1)
+
+    got, want = probe(kern), probe_plain(kern)
+    torch.cuda.synchronize()
+    probe_err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"probe kernel differs from its plain version "
+                             f"on {int((got != want).sum())} of {n} reads")
+    if not bool(got[:third].all()):
+        raise AssertionError("a read holding an indexed fragment is untagged")
+    tagged_random = int(got[third:].sum())
+    probe_ms = cuda_ms(lambda: probe(kern), 10)
+    probe_plain_ms = cuda_ms(lambda: probe_plain(kern), 3)
+
+    # S = 3: the filled set, the plain-built set, one more from 1M reads
+    third_set = planes.alloc_planes(k, device)
+    gen.manual_seed(gen_seed + 1)
+    for _ in range(PLANE_FILL_READS // 4 // n):
+        build(third_set, torch.randint(-2 ** 31, 2 ** 31, (n, lpad // 16),
+                                       dtype=torch.int32, device=device,
+                                       generator=gen))
+    slots = planes.PlaneSlots([kern, plain, third_set])
+
+    def multi():
+        return planes.probe_planes_multi(slots, qc2, lengths, True, lpad, k,
+                                         T, READ_LEN - k + 1)
+
+    def multi_plain():
+        return planes.probe_planes_multi_plain(slots.planes, qc2, lengths,
+                                               True, lpad, k, T,
+                                               READ_LEN - k + 1)
+
+    def singles():
+        return [probe(pl) for pl in slots.planes]
+
+    mgot, mwant = multi(), multi_plain()
+    torch.cuda.synchronize()
+    multi_err = int((mgot.to(torch.int32) - mwant.to(torch.int32)).abs()
+                    .max())
+    if not torch.equal(mgot, mwant):
+        raise AssertionError(f"grouped probe kernel differs from its plain "
+                             f"version on {int((mgot != mwant).sum())} tags")
+    if not torch.equal(mgot[0], got) or not torch.equal(
+            torch.stack(singles()), mgot):
+        raise AssertionError("grouped probe differs from the single probes")
+    multi_ms = cuda_ms(multi, 10)
+    multi_plain_ms = cuda_ms(multi_plain, 3)
+    singles_ms = cuda_ms(singles, 10)
+    return {
+        "build": {"max_abs_err": build_err, "ms": ms / reps,
+                  "plain_ms": plain_ms / reps},
+        "probe": {"max_abs_err": probe_err, "ms": probe_ms,
+                  "plain_ms": probe_plain_ms},
+        "multi": {"max_abs_err": multi_err, "ms": multi_ms,
+                  "plain_ms": multi_plain_ms},
+        "singles_ms": singles_ms, "fill": fill, "fill_s": fill_s,
+        "tagged": [int(x.sum()) for x in mgot],
+        "tagged_random": tagged_random}
+
+
 def phase_golden(device: str, tmp: str) -> str:
     """The port's index_and_search on the in-repo fq golden: the .bv bytes
     after its comment line (the comment names the input path, which moved)
@@ -294,46 +504,61 @@ def _write_fasta(path: str, codes: np.ndarray) -> None:
     np.concatenate([head, body, newline], axis=1).tofile(path)
 
 
-def _implant(rng, sets, q: int, donor: int, rows, donor_rows):
-    """Copy a 64 bp fragment of a random ``donor_rows`` read of set
-    ``donor`` into each ``rows`` read of set ``q``; returns the known
-    shared counts (set q reads holding an N-free fragment, distinct donor
-    reads of such fragments)."""
+def _implant(rng, sets, q: int, donor: int, rows, donor_rows, frag: int):
+    """Copy a ``frag`` bp fragment (2k: two non-overlapping k-mers) of a
+    random ``donor_rows`` read of set ``donor`` into each ``rows`` read of
+    set ``q``; returns the known shared counts (set q reads holding an
+    N-free fragment, distinct donor reads of such fragments) and the donor
+    rows."""
     donors = donor_rows[rng.integers(0, len(donor_rows), len(rows))]
-    src = rng.integers(0, READ_LEN - FRAG + 1, len(rows))
-    dst = rng.integers(0, READ_LEN - FRAG + 1, len(rows))
-    off = np.arange(FRAG)
+    src = rng.integers(0, READ_LEN - frag + 1, len(rows))
+    dst = rng.integers(0, READ_LEN - frag + 1, len(rows))
+    off = np.arange(frag)
     s, d = sets[q], sets[donor]
-    frag = d[donors[:, None], src[:, None] + off]
-    s[rows[:, None], dst[:, None] + off] = frag
+    fragments = d[donors[:, None], src[:, None] + off]
+    s[rows[:, None], dst[:, None] + off] = fragments
     # the bases beside a fragment differ from the donor's, so a shared
     # window never extends past it: a read is shared iff its fragment is
     # N-free (two non-overlapping k-mers)
     for side, ok in ((-1, (src > 0) & (dst > 0)),
-                     (FRAG, (src + FRAG < READ_LEN)
-                      & (dst + FRAG < READ_LEN))):
+                     (frag, (src + frag < READ_LEN)
+                      & (dst + frag < READ_LEN))):
         r, qs, ds = rows[ok], dst[ok] + side, src[ok] + side
         s[r, qs] = (d[donors[ok], ds] + 1) % 4
-    clean = (frag < 4).all(axis=1)
-    return int(clean.sum()), len(np.unique(donors[clean]))
+    clean = (fragments < 4).all(axis=1)
+    return (int(clean.sum()), len(np.unique(donors[clean]))), donors
 
 
-def make_sets(rng, tmp: str, n_reads: int):
-    """Four fasta sets: sets 2 and 3 hold fragments of set 1 in their even
-    reads, set 4 fragments of set 2's odd reads (which hold none of set 1)
-    in its even reads. Returns the manifest path and the known shared
-    counts {(query set, donor set): (n_query, n_donor)}, 0-based."""
+def make_sets(rng, tmp: str, n_reads: int, frag: int = FRAG,
+              n_free_fragments: bool = False):
+    """Four fasta sets: sets 2 and 3 hold ``frag`` bp fragments of set 1 in
+    their even reads, set 4 fragments of set 2's odd reads (which hold none
+    of set 1) in its even reads; 1% of each set's reads carry one N, drawn
+    before the fragments or, with ``n_free_fragments``, after them among
+    the reads that neither hold nor give a fragment. Returns the manifest
+    path and the known shared counts {(query set, donor set): (n_query,
+    n_donor)}, 0-based."""
     sets = [rng.integers(0, 4, (n_reads, READ_LEN), dtype=np.uint8)
             for _ in range(4)]
-    for s in sets:  # 1% of reads carry one N
-        rows = rng.choice(n_reads, n_reads // 100, replace=False)
+
+    def add_ns(s, rows):
+        rows = rng.choice(rows, n_reads // 100, replace=False)
         s[rows, rng.integers(0, READ_LEN, len(rows))] = 4
+
+    if not n_free_fragments:
+        for s in sets:
+            add_ns(s, n_reads)
     even, odd = np.arange(0, n_reads, 2), np.arange(1, n_reads, 2)
     expected = {}
+    used = [np.zeros(n_reads, dtype=bool) for _ in sets]
     for q, donor, donor_rows in ((1, 0, np.arange(n_reads)),
                                  (2, 0, np.arange(n_reads)), (3, 1, odd)):
-        expected[(q, donor)] = _implant(rng, sets, q, donor, even,
-                                        donor_rows)
+        expected[(q, donor)], donors = _implant(rng, sets, q, donor, even,
+                                                donor_rows, frag)
+        used[q][even] = used[donor][donors] = True
+    if n_free_fragments:
+        for s, u in zip(sets, used):
+            add_ns(s, np.nonzero(~u)[0])
     lines = []
     for i, s in enumerate(sets):
         path = os.path.join(tmp, f"set{i + 1}.fa")
@@ -366,58 +591,71 @@ def read_matrix(path: str) -> np.ndarray:
     return np.array([[int(v) for v in r[1:]] for r in rows[1:]])
 
 
-def phase_main_path(device: str, rng, tmp: str, n_reads: int):
-    """The commet driver, default schedule, on four sets; returns per-call
-    wall times, the largest slot count, the matrix and the peak memory."""
+def phase_main_path(device: str, rng, tmp: str, n_reads: int, k: int,
+                    schedule: str, frag: int, n_free_fragments: bool = False):
+    """The commet driver, default schedule, on four sets; it must say it
+    took ``schedule``. Returns per-call wall times, the largest slot count,
+    the matrix and the peak memory."""
     import torch
     from commet_tpu_torch.cli import commet
     from commet_tpu_torch.device import synchronize
     from commet_tpu_torch.engine.engine import Engine
-    fof, expected = make_sets(rng, tmp, n_reads)
-    calls, slots = [], []
-    real_pair, real_multi = Engine.index_and_search, Engine.search_multi_set
+    t0 = time.perf_counter()
+    fof, expected = make_sets(rng, tmp, n_reads, frag, n_free_fragments)
+    calls = [("make_sets (host, numpy; not the driver)",
+              time.perf_counter() - t0)]
+    slots = []
+    real = {name: getattr(Engine, name) for name in (
+        "index_and_search", "search_multi_set", "search_multi_set_planes")}
 
     def timed_pair(self, index_set, query_sets, **kw):
         t0 = time.perf_counter()
-        out = real_pair(self, index_set, query_sets, **kw)
+        out = real["index_and_search"](self, index_set, query_sets, **kw)
         synchronize(self.device)
         names = "+".join(q.name for q in query_sets)
-        calls.append((f"index_and_search {names} in {index_set.name}",
-                      time.perf_counter() - t0))
+        calls.append((f"index_and_search {names} in {index_set.name} (host "
+                      f"pack {self.last_io_stats.get('host_pack_s', 0.0):.3f}"
+                      " s of the last search)", time.perf_counter() - t0))
         return out
 
-    def timed_multi(self, query_set, residents, **kw):
-        t0 = time.perf_counter()
-        out = real_multi(self, query_set, residents, **kw)
-        synchronize(self.device)
-        slots.append(sum(len(r.partitions) for r in residents))
-        names = ", ".join(r.name for r in residents)
-        io_s = self.last_io_stats
-        calls.append((f"search_multi_set {query_set.name} in {{{names}}} "
-                      f"(S = {slots[-1]}; host pack "
-                      f"{io_s.get('host_pack_s', 0.0):.3f} s, dispatch "
-                      f"waited {io_s.get('host_block_s', 0.0):.3f} s)",
-                      time.perf_counter() - t0))
-        return out
+    def timed_multi(name):
+        def run(self, query_set, residents, **kw):
+            t0 = time.perf_counter()
+            out = real[name](self, query_set, residents, **kw)
+            synchronize(self.device)
+            slots.append(sum(len(r.partitions) for r in residents))
+            names = ", ".join(r.name for r in residents)
+            io_s = self.last_io_stats
+            calls.append((f"{name} {query_set.name} in {{{names}}} "
+                          f"(S = {slots[-1]}; host pack "
+                          f"{io_s.get('host_pack_s', 0.0):.3f} s, dispatch "
+                          f"waited {io_s.get('host_block_s', 0.0):.3f} s)",
+                          time.perf_counter() - t0))
+            return out
+        return run
 
-    Engine.index_and_search, Engine.search_multi_set = timed_pair, timed_multi
+    Engine.index_and_search = timed_pair
+    Engine.search_multi_set = timed_multi("search_multi_set")
+    Engine.search_multi_set_planes = timed_multi("search_multi_set_planes")
     tee = _Tee(sys.stdout)
     try:
         out = os.path.join(tmp, "commet_out") + "/"
+        t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
-            rc = commet.main([fof, "-k", str(K), "-t", str(T), "--no-plots",
+            rc = commet.main([fof, "-k", str(k), "-t", str(T), "--no-plots",
                               "-o", out, "--device", device])
+        calls.append(("commet driver, whole run", time.perf_counter() - t0))
     finally:
-        Engine.index_and_search, Engine.search_multi_set = (real_pair,
-                                                            real_multi)
+        for name, fn in real.items():
+            setattr(Engine, name, fn)
     if rc != 0:
         raise AssertionError(f"commet exited {rc}")
     said = tee.kept.getvalue()
-    if "schedule: amortized" not in said or "schedule: classic" in said:
-        raise AssertionError("the driver did not take the amortized "
+    if f"schedule: {schedule}" not in said or "schedule: classic" in said:
+        raise AssertionError(f"the driver did not take the {schedule} "
                              "schedule")
     if max(slots, default=0) != 3:
-        raise AssertionError(f"set 4 joined {slots} slots, expected 3")
+        raise AssertionError(f"set 4 probed {slots} slots, expected 3")
     for kind in ("plain", "percentage", "normalized"):
         if not os.path.exists(out + f"matrix_{kind}.csv"):
             raise AssertionError(f"matrix_{kind}.csv missing")
@@ -468,7 +706,60 @@ def phase_schedules(device: str, rng, tmp: str, n_reads: int):
     want = [f"{plain[0, j]}/{plain[j, 0]}" for j in range(len(plain))]
     if cells != want:
         raise AssertionError(f"vector_plain {cells} != matrix {want}")
-    return len(files), cells, walls
+    return len(files), cells, walls, fof, runs["amortized"], files
+
+
+def phase_routes(device: str, tmp: str, fof: str, default_out: str, files):
+    """The driver on phase 7's sets with COMMET_TPU_STREAM=0 (every
+    partition on the planes: plane cohorts, plane refinement) and =force
+    (every partition on the sorted index): the .bv and matrix files of
+    the default run. Returns each route's wall, schedule line and plane
+    kernel launches."""
+    import torch
+    from commet_tpu_torch.cli import commet
+    from commet_tpu_torch.core import planes
+    report = {}
+    for name, mode in (("planes", "0"), ("sorted", "force")):
+        counts = _plane_launches(planes)
+        torch.cuda.empty_cache()
+        os.environ["COMMET_TPU_STREAM"] = mode
+        out = os.path.join(tmp, "route_" + name) + "/"
+        tee = _Tee(io.StringIO())
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                rc = commet.main([fof, "-k", str(K), "-t", str(T),
+                                  "--no-plots", "-o", out, "--device",
+                                  device])
+        finally:
+            del os.environ["COMMET_TPU_STREAM"]
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"commet ({name} route) exited {rc}")
+        for f in files:
+            with open(default_out + f, "rb") as f1, open(out + f, "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"{f}: {name} route != default")
+        launched = [b - a for a, b in zip(counts, _plane_launches(planes))]
+        line = [ln for ln in tee.kept.getvalue().splitlines()
+                if ln.startswith("schedule:")][0]
+        report[name] = (wall, line, launched)
+    if min(report["planes"][2]) == 0 or max(report["sorted"][2]) != 0:
+        raise AssertionError(f"plane kernel launches per route: {report}")
+    return report
+
+
+def zero_counts(stream, planes):
+    """Every kernel wrapper's launch count set to 0."""
+    for fn in (stream.join_membership, stream.join_membership_multi,
+               planes.build_planes, planes.probe_planes,
+               planes.probe_planes_multi):
+        fn.launches = 0
+
+
+def _plane_launches(planes):
+    return (planes.build_planes.launches, planes.probe_planes.launches,
+            planes.probe_planes_multi.launches)
 
 
 def main() -> int:
@@ -483,7 +774,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from commet_tpu_torch.core import _cuda, stream
+    from commet_tpu_torch.core import _cuda, planes, stream
     from commet_tpu_torch.device import resolve_device
 
     device = resolve_device("cuda")
@@ -501,11 +792,12 @@ def main() -> int:
         f"({time.perf_counter() - t0:.3f} s)")
 
     t0 = time.perf_counter()
-    lib = _cuda.load("join")
-    for fn in ("commet_join", "commet_join_multi"):
-        getattr(lib, fn)
-    log(f"phase build: join.cu built with nvcc and loaded, commet_join and "
-        f"commet_join_multi bound ({time.perf_counter() - t0:.3f} s)")
+    libs = _cuda.load_all()
+    bound = [fn for name, lib in libs.items()
+             for fn in _cuda._SIGNATURES[name] if getattr(lib, fn)]
+    log(f"phase build: {', '.join(n + '.cu' for n in libs)} built with nvcc "
+        f"in parallel and loaded, {', '.join(bound)} bound "
+        f"({time.perf_counter() - t0:.3f} s)")
 
     t0 = time.perf_counter()
     kern = phase_kernel(device, rng, INDEX_PAIRS, QUERY_PAIRS)
@@ -542,13 +834,13 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
-        stream.join_membership.launches = 0
-        stream.join_membership_multi.launches = 0
+        zero_counts(stream, planes)
         t0 = time.perf_counter()
-        calls, s_max, plain, peak = phase_main_path("cuda", rng, tmp,
-                                                    SET_READS)
+        calls, s_max, plain, peak = phase_main_path(
+            "cuda", rng, tmp, SET_READS, K, "amortized", FRAG)
         launches = stream.join_membership.launches
         launches_multi = stream.join_membership_multi.launches
+        stream_planes = _plane_launches(planes)
         if launches == 0 or launches_multi == 0:
             raise AssertionError(f"the main path launched join {launches} "
                                  f"and join_multi {launches_multi} times")
@@ -557,20 +849,70 @@ def main() -> int:
         log(f"phase main path: commet -k {K} -t {T} on 4 x {SET_READS} "
             f"reads, amortized schedule, S up to {s_max}, matrix_plain rows "
             f"{plain.tolist()}, join launches {launches}, join_multi "
-            f"launches {launches_multi}, max_memory_allocated {peak} B "
+            f"launches {launches_multi}, plane kernel launches "
+            f"{stream_planes}, max_memory_allocated {peak} B "
             f"({time.perf_counter() - t0:.3f} s)")
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        n_files, cells, walls = phase_schedules("cuda", rng, tmp,
-                                                SCHED_READS)
+        n_files, cells, walls, fof, default_out, files = phase_schedules(
+            "cuda", rng, tmp, SCHED_READS)
         log(f"phase schedules: 4 x {SCHED_READS} reads, amortized and "
             f"classic identical over {n_files} .bv/.csv files, one_vs_all "
             f"vector_plain {cells}; driver wall amortized "
             f"{walls['amortized']:.3f} s, classic {walls['classic']:.3f} s, "
             f"one_vs_all {walls['one_vs_all']:.3f} s "
             f"({time.perf_counter() - t0:.3f} s)")
+        t0 = time.perf_counter()
+        routes = phase_routes("cuda", tmp, fof, default_out, files)
+        log(f"phase routes: the same sets with COMMET_TPU_STREAM=0 and "
+            f"=force write the default run's {len(files)} files; driver wall "
+            f"default {walls['amortized']:.3f} s, "
+            + ", ".join(f"{name} {wall:.3f} s ({line!r}, build/probe/"
+                        f"probe_multi launches {launched})"
+                        for name, (wall, line, launched) in routes.items())
+            + f" ({time.perf_counter() - t0:.3f} s)")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pk = phase_plane_kernels(device, 33)
+    log(f"phase plane kernels: k = {PLANE_K}, {planes.plane_bytes(PLANE_K)} "
+        f"B per plane set; build of one {PLANE_BATCH}-read batch equal word "
+        f"for word to the plain version's, kernel {pk['build']['ms']:.4f} "
+        f"ms, plain {pk['build']['plain_ms']:.4f} ms per batch; "
+        f"{PLANE_FILL_READS} reads built in {pk['fill_s']:.3f} s, plane A "
+        f"fill {pk['fill']:.5f}; probe of {PLANE_BATCH} reads (a third with "
+        f"a {2 * PLANE_K} bp indexed fragment, all tagged; "
+        f"{pk['tagged_random']} others tagged) equal to the plain version's, "
+        f"kernel {pk['probe']['ms']:.4f} ms, plain "
+        f"{pk['probe']['plain_ms']:.4f} ms; probe_multi at S = 3 (tags per "
+        f"slot {pk['tagged']}) equal to its plain version's and to three "
+        f"single probes, kernel {pk['multi']['ms']:.4f} ms, plain "
+        f"{pk['multi']['plain_ms']:.4f} ms, 3 single launches "
+        f"{pk['singles_ms']:.4f} ms ({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(stream, planes)
+        t0 = time.perf_counter()
+        calls, s_max, plain, peak = phase_main_path(
+            "cuda", rng, tmp, PLANE_SET_READS, PLANE_K, "plane cohorts",
+            2 * PLANE_K, n_free_fragments=True)
+        plane_counts = _plane_launches(planes)
+        if min(plane_counts) == 0:
+            raise AssertionError(f"the planes main path launched build/"
+                                 f"probe/probe_multi {plane_counts} times")
+        for what, secs in calls:
+            log(f"  {what}: {secs:.3f} s")
+        log(f"phase planes main path: commet -k {PLANE_K} -t {T} on 4 x "
+            f"{PLANE_SET_READS} reads, plane cohorts, S up to {s_max}, "
+            f"matrix_plain rows {plain.tolist()}, build_planes/probe_planes/"
+            f"probe_planes_multi launches {plane_counts}, join/join_multi "
+            f"launches {stream.join_membership.launches}/"
+            f"{stream.join_membership_multi.launches}, max_memory_allocated "
+            f"{peak} B ({time.perf_counter() - t0:.3f} s)")
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:
@@ -584,7 +926,13 @@ def main() -> int:
         {"name": "join_multi", "route": "cuda", "source": JOIN_SOURCE,
          "replaces": JOIN_MULTI_REPLACES, "launches": launches_multi,
          "max_abs_err": multi["max_abs_err"], "ms": multi["ms"],
-         "plain_ms": multi["plain_ms"]}]}))
+         "plain_ms": multi["plain_ms"]}] + [
+        {"name": name, "route": "cuda", "source": PLANES_SOURCE,
+         "replaces": replaces, "launches": launched, **pk[key]}
+        for name, replaces, launched, key in zip(
+            ("build_planes", "probe_planes", "probe_planes_multi"),
+            (BUILD_REPLACES, PROBE_REPLACES, PROBE_MULTI_REPLACES),
+            plane_counts, ("build", "probe", "multi"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -14,12 +14,13 @@ Given a file-of-files manifest (one line per read set,
      vector_plain/percentage.csv are written instead (Commet.py:355-433).
 
 Step 0 takes the amortized schedule by default (``run_amortized_rounds``):
-the index sets stay resident on the device and each query set streams once
-against all of them. ``COMMET_TPU_MULTI=0`` selects the classic rounds, which
-also run, with a printed line, where the amortized schedule cannot serve the
-sets. The outputs are the same either way. State flows through .bv files
-between steps like the reference's subprocess pipeline. ``--jobs``/``--sge``
-and multi-host runs are not ported yet (ROADMAP).
+the index sets stay resident on the device, as sorted indexes below the fill
+gate and in plane cohorts above it (``run_plane_cohorts``), and each query
+set is searched once against all of them. ``COMMET_TPU_MULTI=0`` selects the
+classic rounds, which also run, with a printed line, where neither amortized
+form can serve the sets. The outputs are the same either way. State flows
+through .bv files between steps like the reference's subprocess pipeline.
+``--jobs``/``--sge`` and multi-host runs are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from commet_tpu.io.bv import BitVector
 from commet_tpu.io.fof import (driver_read_bvs, driver_read_files,
                                driver_set_names)
 from commet_tpu.io.reads import ReadSet
+from commet_tpu_torch.core import planes
 from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine.engine import DEFAULT_BATCH, Engine
 
@@ -99,12 +101,13 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
     streams once against all earlier residents (Engine.search_multi_set),
     and the a/b refinement steps run pairwise. Each pair's step-0 outcome
     depends only on its own two sets, so the outputs equal the classic
-    rounds'. Returns False, after printing why, when COMMET_TPU_MULTI=0 or
-    the sets cannot be served (an index set over k or the device-memory
-    budget, reads too long for the batch geometry); the caller then runs
-    the classic rounds. Counterpart of commet_tpu's run_amortized_rounds;
-    where that tries its dense-plane cohorts, this runs the classic rounds
-    (the dense-plane path is not ported yet)."""
+    rounds'. Where a set cannot stay resident as a sorted index (above the
+    fill gate, over k or the device-memory budget) the plane cohorts take
+    the step (run_plane_cohorts), as commet_tpu's driver does. Returns
+    False, after printing why, when COMMET_TPU_MULTI=0, the cohorts decline
+    or a query set's reads are too long for the batch geometry; the caller
+    then runs the classic rounds. Counterpart of commet_tpu's
+    run_amortized_rounds."""
     if os.environ.get("COMMET_TPU_MULTI", "1") == "0":
         print("schedule: classic rounds (COMMET_TPU_MULTI=0)")
         return False
@@ -117,10 +120,12 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
         r = eng.build_resident(
             rs, budget=None if budget is None else budget - total_bytes)
         if r is None:
-            print(f"schedule: classic rounds ({names[i]} cannot stay "
-                  f"resident at k={eng.k} within the device-memory budget; "
-                  "the dense-plane cohorts are not ported yet)")
-            return False
+            residents = None  # free the sorted residents before the planes
+            return run_plane_cohorts(
+                read_matrix, bv_matrix, names, out_dir, end, eng,
+                f"{names[i]} cannot stay resident as a sorted index at "
+                f"k={eng.k}: above the fill gate or the device-memory "
+                "budget")
         total_bytes += r.device_bytes()
         residents.append(r)
     print(f"schedule: amortized ({end} resident indexes, {total_bytes} "
@@ -138,6 +143,66 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
     for i in range(end):
         for j in range(i + 1, len(names)):
             refine_pair(read_matrix, bv_matrix, names, out_dir, i, j, eng)
+    return True
+
+
+def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng,
+                      why):
+    """Step 0 of the all-vs-all schedule where the index sets cannot stay
+    resident as sorted indexes (``why``): the index sets S_0 .. S_{end-1}
+    are built as resident plane sets in contiguous cohorts of at most
+    COMMET_TPU_PLANE_COHORT_MAX (8) sets within the device-memory budget
+    (the free memory less the build and probe workspace, and
+    COMMET_TPU_PLANES_BUDGET when set: Engine._planes_budget), each query set is probed against its cohort predecessors with one
+    upload per batch (Engine.search_multi_set_planes), then the refinement
+    runs pairwise. Pair results equal the classic rounds'. Returns False,
+    after printing why, when fewer than two index sets need the step or two
+    plane sets do not fit the budget; the caller then runs the classic
+    rounds. Counterpart of commet_tpu's run_plane_cohorts (its
+    COMMET_TPU_BULK_CHUNK workspace halving has nothing to halve here)."""
+    env_budget = os.environ.get("COMMET_TPU_PLANES_BUDGET")
+    budget = eng._planes_budget(float(env_budget) if env_budget else None)
+    max_s = int(os.environ.get("COMMET_TPU_PLANE_COHORT_MAX", "8"))
+    declined = None
+    if end < 2:
+        declined = "one index set: nothing to amortize"
+    elif 2 * planes.plane_bytes(eng.k) > budget:
+        declined = (f"two plane sets of {planes.plane_bytes(eng.k)} B exceed "
+                    f"the plane budget of {budget:.0f} B")
+    i = 0
+    while declined is None and i < end:
+        cohort, total = [], 0
+        while i < end and len(cohort) < max_s:
+            rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
+            r = eng.build_resident_planes(rs, budget=budget - total)
+            if r is None:
+                break
+            cohort.append(r)
+            total += r.device_bytes()
+            i += 1
+        if not cohort:
+            declined = (f"{names[i]}'s plane sets exceed the plane budget of "
+                        f"{budget:.0f} B")
+            break
+        first = i - len(cohort)
+        print(f"schedule: plane cohorts ({', '.join(r.name for r in cohort)}"
+              f" resident as planes, {total} device bytes"
+              f"{'; ' + why if first == 0 else ''})")
+        for j in range(first + 1, len(names)):
+            targets = cohort[:min(j - first, len(cohort))]
+            rs_q = _load_set(names[j], read_matrix[j], bv_matrix[j])
+            print(f"{names[j]} in {{{', '.join(r.name for r in targets)}}}"
+                  " [plane cohort]")
+            eng.search_multi_set_planes(rs_q, targets, out_dir=out_dir,
+                                        log_dir=out_dir)
+        cohort = targets = None  # free the planes before the next cohort
+    if declined is not None:
+        print(f"schedule: classic rounds ({why}; the plane cohorts "
+              f"decline: {declined})")
+        return False
+    for a in range(end):
+        for j in range(a + 1, len(names)):
+            refine_pair(read_matrix, bv_matrix, names, out_dir, a, j, eng)
     return True
 
 

@@ -16,12 +16,17 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "core", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+# a packed read batch in planes.cu: codes2, nw2, aux, nwv, clean, b, length
+_BATCH = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+          ctypes.c_int, ctypes.c_int64, ctypes.c_int]
 
 # C signatures of the exported functions, per source file
 _SIGNATURES = {
@@ -34,6 +39,18 @@ _SIGNATURES = {
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int64, ctypes.c_void_p,
                                    ctypes.c_void_p]},
+    "planes": {"commet_build_planes": [ctypes.c_void_p, ctypes.c_int64,
+                                       *_BATCH, ctypes.c_int,
+                                       ctypes.c_void_p],
+               "commet_probe_planes": [ctypes.c_void_p, ctypes.c_int64,
+                                       *_BATCH, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p],
+               "commet_probe_planes_multi": [ctypes.c_void_p, ctypes.c_int64,
+                                             ctypes.c_int64, *_BATCH,
+                                             ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_void_p]},
 }
 
 _lock = threading.Lock()
@@ -84,3 +101,12 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
         return lib
+
+
+def load_all() -> dict:
+    """Every csrc library, built at once (one nvcc per source, started
+    together) and loaded: {name: library}."""
+    names = list(_SIGNATURES)
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        list(ex.map(_build, names))
+    return {name: load(name) for name in names}

@@ -1,7 +1,8 @@
 """The index -> search engine of index_and_search (reference
-src/index_and_search.cpp), served by the sorted-join stream probe.
+src/index_and_search.cpp), served by the sorted-join stream probe or by the
+dense bit planes.
 
-Counterpart of the stream-serving part of commet_tpu/engine/engine.py:
+Counterpart of commet_tpu/engine/engine.py:
   - the host batches eligible reads into 2-bit packed tensors (the native
     gather+pack runs on a prefetch thread; on CUDA the batches land in pinned
     memory and upload with non-blocking copies);
@@ -9,15 +10,26 @@ Counterpart of the stream-serving part of commet_tpu/engine/engine.py:
     including the read dropped at every partition boundary
     (index_reads.h:49-61) and found-read skipping between partitions
     (file_manager.h:99-109);
-  - per partition, the valid forward windows' (keya, keyb) pairs are sorted
-    into a StreamIndex on the device; every still-untagged query read goes
-    through the stream probe (keygen, query sort, join kernel, verdict
-    sandwich), and the AMBIG residue through the exact sorted-set probe.
+  - each partition is decided before it is built, from its fill (k-mers /
+    2^k), as commet_tpu decides it: at or below ``stream_max_fill`` the
+    valid forward windows' (keya, keyb) pairs are sorted into a StreamIndex
+    and every still-untagged query read goes through the stream probe
+    (keygen, query sort, join kernel, verdict sandwich) and the AMBIG residue
+    through the exact sorted-set probe; above it the partition's windows are
+    set in four dense bit planes of 2^k bits (core/planes.py) and every query
+    read goes through the exact plane probe.
 
-The amortized all-vs-all schedule keeps every step-0 index set resident
-(``build_resident``) and streams each query set once against all of them
-(``search_multi_set``: one query sort, one grouped join launch per group of
-partitions, one unsort), with the same tags, counters and files as the
+``COMMET_TPU_STREAM`` and ``COMMET_TPU_STREAM_MAX_FILL`` are read as
+commet_tpu reads them: ``force`` serves every partition by the sorted index,
+``0`` every partition by the planes, anything else the gate (0.02 by
+default). Tags are exact on either route.
+
+The amortized all-vs-all schedule keeps every step-0 index set resident:
+below the gate as sorted indexes (``build_resident``; ``search_multi_set``:
+one query sort, one grouped join launch per group of partitions, one
+unsort), above it as plane sets (``build_resident_planes``;
+``search_multi_set_planes``: one upload per batch, one grouped probe launch
+per group of plane sets), with the same tags, counters and files as the
 pairwise calls.
 
 Batches are sized by ``stream_batch_size``: at most STREAM_BATCH reads, fewer
@@ -25,8 +37,6 @@ when long reads would make a batch's window keys exceed what the device
 budget per batch holds; where even the floor of STREAM_MIN_BATCH reads is too
 large, search_set takes the exact probe and search_multi_set declines.
 
-Every partition is served by the sorted index whatever its fill (the JAX
-package's COMMET_TPU_STREAM=force behaviour): tags are exact either way.
 There is no CPU fallback: the engine runs on the device it is given.
 """
 
@@ -42,7 +52,7 @@ import numpy as np
 import torch
 
 from commet_tpu.io.reads import ReadSet
-from commet_tpu_torch.core import keys, stream
+from commet_tpu_torch.core import keys, planes, stream
 from commet_tpu_torch.device import resolve_device, synchronize
 
 # reads per host batch of the exact fallback
@@ -75,6 +85,13 @@ STREAM_BYTES_PER_KEY = 128
 SLOT_BYTES_PER_KEY = 16
 # widest k a resident index serves (commet_tpu's multi-index domain)
 RESIDENT_MAX_K = 34
+# the fill gate: a partition whose k-mers / 2^k exceed it takes the planes
+# (commet_tpu's stream_max_fill; COMMET_TPU_STREAM_MAX_FILL overrides)
+STREAM_MAX_FILL = 0.02
+# device bytes kept free beside plane sets: the build and probe kernels need
+# only a batch's upload and tags, so this is a margin for the allocator and
+# the refinement calls' batches
+PLANES_WORKSPACE_BYTES = 2 << 30
 
 
 def max_kmer_for(k: int) -> int:
@@ -195,11 +212,31 @@ class ResidentIndex:
                    for x in (sx.ika, sx.ikb, sx.sb, sx.sc, sx.sd))
 
 
+@dataclass
+class ResidentPlanes:
+    """One index read set kept on the device as the four-plane set of each
+    of its max_kmer partitions, for the plane cohorts of the all-vs-all
+    schedule, where partitions are above the fill gate (the reference's own
+    default: full k = 33 partitions at 11.6% fill). Counterpart of
+    commet_tpu's ResidentPlanes."""
+
+    name: str
+    partitions: List[torch.Tensor]  # [4 * plane_words(k)] int32 each
+    fills: List[float]
+    nb_indexed: int
+    total_kmers: int
+    build_seconds: float
+
+    def device_bytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self.partitions)
+
+
 class Engine:
-    """Builds the sorted index of each partition of an index set and
-    classifies query sets against it, with the reference's partitioning
-    semantics. ``device`` is "cuda" (the CUDA join kernel) or "cpu" (its
-    plain PyTorch version); "cuda" without a card raises."""
+    """Builds the sorted index or the bit planes of each partition of an
+    index set and classifies query sets against it, with the reference's
+    partitioning semantics. ``device`` is "cuda" (the CUDA kernels) or "cpu"
+    (their plain PyTorch versions); "cuda" without a card raises. The route
+    settings are read from the environment when the engine is made."""
 
     def __init__(self, k: int, t: int, device, batch: int = DEFAULT_BATCH,
                  max_kmer: Optional[int] = None):
@@ -211,6 +248,11 @@ class Engine:
         self.device = resolve_device(device)
         self.batch = batch
         self.max_kmer = max_kmer_for(k) if max_kmer is None else max_kmer
+        mode = os.environ.get("COMMET_TPU_STREAM", "1")
+        self.stream_forced = mode == "force"
+        self.stream_off = mode == "0"
+        self.stream_max_fill = float(os.environ.get(
+            "COMMET_TPU_STREAM_MAX_FILL", str(STREAM_MAX_FILL)))
         # host-IO accounting of the last search call: total gather+pack
         # work (prefetch thread), time the dispatch loop waited for a batch,
         # time spent fetching verdicts
@@ -319,6 +361,15 @@ class Engine:
         return free + (torch.cuda.memory_reserved(self.device)
                        - torch.cuda.memory_allocated(self.device))
 
+    def serves_sorted(self, n_kmers: int) -> bool:
+        """Whether a partition of ``n_kmers`` k-mers takes the sorted index
+        (else the bit planes): COMMET_TPU_STREAM=force always, =0 never,
+        otherwise when its fill n_kmers / 2^k is at most stream_max_fill.
+        Counterpart of commet_tpu's per-partition _stream_serving."""
+        if self.stream_forced or self.stream_off:
+            return self.stream_forced
+        return n_kmers / float(2 ** self.k) <= self.stream_max_fill
+
     def _check_build_memory(self, n_kmers: int) -> None:
         if self.device.type != "cuda":
             return
@@ -329,8 +380,38 @@ class Engine:
                 f"partition of {n_kmers} k-mers needs about {need / 1e9:.1f} "
                 f"GB to build its sorted index ({INDEX_BYTES_PER_KMER} B per "
                 f"k-mer resident plus sort workspace); {free / 1e9:.1f} GB "
-                f"free on {self.device}. Lower max_kmer, or see ROADMAP "
-                "'dense-plane path' (K2-K5), which serves such partitions.")
+                f"free on {self.device}. A partition above the fill gate "
+                f"(COMMET_TPU_STREAM_MAX_FILL, now {self.stream_max_fill}) "
+                f"takes the dense-plane path ({planes.plane_bytes(self.k)} B "
+                "at this k); COMMET_TPU_STREAM=0 sends every partition "
+                "there, or lower max_kmer.")
+
+    def _check_plane_memory(self) -> None:
+        if self.device.type != "cuda":
+            return
+        free = self._free_bytes()
+        need = planes.plane_bytes(self.k)
+        if need > free:
+            raise MemoryError(
+                f"the four bit planes of k={self.k} need {need} B; {free} B "
+                f"free on {self.device}")
+
+    def build_planes(self, enc: EncodedSet, idx: np.ndarray) -> torch.Tensor:
+        """The partition's four-plane set from reads ``idx``: every complete
+        forward window set through planes.build_planes, batch by batch.
+        Counterpart of Engine.build_planes off the stream branch (the
+        per-batch and the bulk builds alike)."""
+        self._check_plane_memory()
+        out = planes.alloc_planes(self.k, self.device)
+        lmax = int(enc.read_lengths(idx).max(initial=1))
+        lpad = _pad_length(lmax, self.k)
+        wmax = max(1, lmax - self.k + 1)
+        for _sl, c2, vd, ln, clean in self._batched_packed(
+                enc, idx, lpad, row_batch_size(STREAM_BATCH, wmax)):
+            planes.build_planes(out, self._up(c2),
+                                self._up(ln if clean else vd), clean, lpad,
+                                self.k)
+        return out
 
     def build_index(self, enc: EncodedSet, idx: np.ndarray,
                     n_kmers: int) -> stream.StreamIndex:
@@ -357,17 +438,21 @@ class Engine:
         return stream.finalize_index(ka, kb)
 
     # --------------------------------------------------------------- search
-    def search_set(self, sidx: stream.StreamIndex, enc: EncodedSet,
+    def search_set(self, sidx, enc: EncodedSet,
                    idx: np.ndarray) -> np.ndarray:
         """Tags [len(idx)] bool of reads ``idx`` against one partition's
-        index: the stream probe for every read, then the exact sorted-set
-        probe for the AMBIG residue. Counterpart of Engine.search_set ->
-        _search_stream_only: when the batch geometry cannot serve the reads
-        (stream_batch_size is None), every read takes the exact probe."""
+        index. A StreamIndex: the stream probe for every read, then the
+        exact sorted-set probe for the AMBIG residue (counterpart of
+        Engine.search_set -> _search_stream_only; when the batch geometry
+        cannot serve the reads, stream_batch_size is None, every read takes
+        the exact probe). A plane set: the exact plane probe
+        (_search_planes)."""
         tags = np.zeros(len(idx), dtype=bool)
         lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
+        if isinstance(sidx, torch.Tensor):
+            return self._search_planes(sidx, enc, idx, lpad, wmax)
         size = stream_batch_size(len(idx), wmax)
         if size is None:
             return self._search_stream_fallback(sidx, enc, idx, lpad, wmax)
@@ -399,6 +484,26 @@ class Engine:
                                                      lpad, wmax)
         return tags
 
+    def _search_planes(self, pl: torch.Tensor, enc: EncodedSet,
+                       idx: np.ndarray, lpad: int, wmax: int) -> np.ndarray:
+        """Exact tags of reads ``idx`` against one plane set, both strands
+        in one probe per batch. Counterpart of Engine._search_cascade /
+        _search_full, whose TAGGED/UNTAGGED/AMBIG rounds end in these
+        tags."""
+        tags = np.zeros(len(idx), dtype=bool)
+        pending = []  # (slice, device tags): fetched after dispatching
+        self._io_reset()
+        for sl, c2, vd, ln, clean in self._batched_packed(
+                enc, idx, lpad, row_batch_size(STREAM_BATCH, wmax)):
+            pending.append((sl, planes.probe_planes(
+                pl, self._up(c2), self._up(ln if clean else vd), clean,
+                lpad, self.k, self.t, wmax)))
+        t_fetch = time.time()
+        for sl, got in pending:
+            tags[sl] = got.cpu().numpy()
+        self._io_stash(time.time() - t_fetch)
+        return tags
+
     def _search_stream_fallback(self, sidx: stream.StreamIndex,
                                 enc: EncodedSet, rows_idx: np.ndarray,
                                 lpad: int, wmax: int) -> np.ndarray:
@@ -422,10 +527,11 @@ class Engine:
                          log_dir: Optional[str] = None,
                          save: bool = True) -> Dict[str, Dict[str, float]]:
         """The partitioned loop (index_and_search.cpp:255-277): per
-        partition, build the index and classify every query set with
-        found-read skipping; then write the per-file result .bv's and the
-        per-pair logs. Returns {query name: {indexed, searched, shared,
-        index_time, search_time, total_time}}."""
+        partition, build its sorted index or its planes (serves_sorted) and
+        classify every query set with found-read skipping; then write the
+        per-file result .bv's and the per-pair logs. Returns {query name:
+        {indexed, searched, shared, index_time, search_time,
+        total_time}}."""
         t_start = time.time()
         enc_index = EncodedSet(index_set)
         enc_queries = [EncodedSet(q) for q in query_sets]
@@ -442,8 +548,11 @@ class Engine:
         for part in parts:
             t0 = time.time()
             sidx = None  # free the previous partition's index first
-            sidx = self.build_index(enc_index, elig[part],
-                                    int(kcounts[part].sum()))
+            n_kmers = int(kcounts[part].sum())
+            if self.serves_sorted(n_kmers):
+                sidx = self.build_index(enc_index, elig[part], n_kmers)
+            else:
+                sidx = self.build_planes(enc_index, elig[part])
             synchronize(self.device)
             index_time += time.time() - t0
             nb_indexed += len(part)
@@ -496,9 +605,11 @@ class Engine:
                        ) -> Optional[ResidentIndex]:
         """Build every max_kmer partition of ``index_set`` as a resident
         StreamIndex (build_index per partition). Returns None, before any
-        device allocation, when k > RESIDENT_MAX_K or the resident bytes
-        (INDEX_BYTES_PER_KMER per k-mer) exceed _resident_budget; the caller
-        then takes the pairwise schedule. Counterpart of build_resident."""
+        device allocation, when k > RESIDENT_MAX_K, the resident bytes
+        (INDEX_BYTES_PER_KMER per k-mer) exceed _resident_budget or a
+        partition is above the fill gate (serves_sorted); the caller then
+        takes the plane cohorts or the pairwise schedule. Counterpart of
+        build_resident."""
         if self.k > RESIDENT_MAX_K:
             return None
         t0 = time.time()
@@ -510,6 +621,8 @@ class Engine:
         if total * INDEX_BYTES_PER_KMER > self._resident_budget(total, budget):
             return None
         parts = self.partitions(kcounts)
+        if not all(self.serves_sorted(int(kcounts[p].sum())) for p in parts):
+            return None
         sxs = [self.build_index(enc, elig[part], int(kcounts[part].sum()))
                for part in parts]
         synchronize(self.device)
@@ -589,6 +702,89 @@ class Engine:
             self._io_stash(fetch_s)
         return self._multi_finish(query_set, residents, cand, tags_slot,
                                   fb_time, t_start, out_dir, log_dir, save)
+
+    # ------------------------------ amortized all-vs-all step 0, planes
+    def _planes_budget(self, budget: Optional[float]) -> float:
+        """Device bytes new resident plane sets may take: the least of the
+        caller's ``budget`` and, on the card, the free memory less
+        PLANES_WORKSPACE_BYTES."""
+        limits = [] if budget is None else [budget]
+        if self.device.type == "cuda":
+            limits.append(self._free_bytes() - PLANES_WORKSPACE_BYTES)
+        return min(limits, default=float("inf"))
+
+    def build_resident_planes(self, index_set: ReadSet,
+                              budget: Optional[float] = None
+                              ) -> Optional[ResidentPlanes]:
+        """Build every max_kmer partition of ``index_set`` as a resident
+        four-plane set (build_planes per partition), for the plane cohorts.
+        Returns None, before any device allocation, when the plane bytes
+        (plane_bytes(k) per partition) exceed _planes_budget. Counterpart of
+        build_resident_planes."""
+        t0 = time.time()
+        enc = EncodedSet(index_set)
+        elig = index_set.eligible()
+        kcounts = (self.count_kmers(enc, elig) if len(elig)
+                   else np.zeros(0, dtype=np.int64))
+        parts = self.partitions(kcounts)
+        if len(parts) * planes.plane_bytes(self.k) > self._planes_budget(
+                budget):
+            return None
+        pls = [self.build_planes(enc, elig[part]) for part in parts]
+        synchronize(self.device)
+        fills = [float(kcounts[part].sum()) / float(2 ** self.k)
+                 for part in parts]
+        return ResidentPlanes(index_set.name, pls, fills,
+                              int(sum(len(p) for p in parts)),
+                              int(kcounts.sum()), time.time() - t0)
+
+    def search_multi_set_planes(self, query_set: ReadSet,
+                                residents: List[ResidentPlanes],
+                                out_dir: Optional[str] = None,
+                                log_dir: Optional[str] = None,
+                                save: bool = True, max_slots: int = 32
+                                ) -> Dict[str, Dict[str, float]]:
+        """Classify ``query_set`` against every resident plane set with one
+        upload per batch serving a group of up to ``max_slots`` slots (one
+        slot per (resident, partition)) by one grouped probe launch
+        (planes.probe_planes_multi; a lone slot takes probe_planes). Writes
+        the same result .bv's, logs and counters as len(residents) pairwise
+        index_and_search calls, through _multi_finish. Counterpart of
+        search_multi_set_planes, whose cascade rounds and exact fallback
+        end in the tags this probe gives in one pass."""
+        t_start = time.time()
+        enc_q = EncodedSet(query_set)
+        cand = query_set.untagged_eligible()
+        slots = [pl for r in residents for pl in r.partitions]
+        tags_slot = np.zeros((len(slots), len(cand)), dtype=bool)
+        if len(cand) and slots:
+            lmax = int(enc_q.read_lengths(cand).max(initial=1))
+            lpad = _pad_length(lmax, self.k)
+            wmax = max(1, lmax - self.k + 1)
+            size = row_batch_size(STREAM_BATCH, wmax)
+            self._io_reset()
+            fetch_s = 0.0
+            for base in range(0, len(slots), max_slots):
+                group = slots[base:base + max_slots]
+                table = planes.PlaneSlots(group) if len(group) > 1 else None
+                pending = []  # (slice, device tags [S, b])
+                for sl, c2, vd, ln, clean in self._batched_packed(
+                        enc_q, cand, lpad, size):
+                    args = (self._up(c2), self._up(ln if clean else vd),
+                            clean, lpad, self.k, self.t, wmax)
+                    if table is None:
+                        got = planes.probe_planes(group[0], *args)[None]
+                    else:
+                        got = planes.probe_planes_multi(table, *args)
+                    pending.append((sl, got))
+                t_fetch = time.time()
+                for sl, got in pending:
+                    tags_slot[base:base + len(group), sl] = got.cpu().numpy()
+                fetch_s += time.time() - t_fetch
+            self._io_stash(fetch_s)
+        return self._multi_finish(query_set, residents, cand, tags_slot,
+                                  [0.0] * len(residents), t_start, out_dir,
+                                  log_dir, save)
 
     def _multi_finish(self, query_set: ReadSet, residents, cand, tags_slot,
                       fb_time, t_start, out_dir, log_dir, save):

@@ -1,17 +1,20 @@
 """State carried across from the JAX package: a commet_tpu StreamIndex, given
-as numpy arrays, becomes the port's StreamIndex, and a commet_tpu
-ResidentIndex the port's ResidentIndex, so both packages can be held against
-each other on the same index."""
+as numpy arrays, becomes the port's StreamIndex, a commet_tpu ResidentIndex
+the port's ResidentIndex, a commet_tpu plane set (uint32 words) the port's
+int32 plane tensor and a commet_tpu ResidentPlanes the port's
+ResidentPlanes, so both packages can be held against each other on the same
+index."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from commet_tpu_torch.core.keys import host_u32
 from commet_tpu_torch.core.stream import (StreamIndex,
                                           index_from_sorted_pairs,
                                           lexsort_pairs)
-from commet_tpu_torch.engine.engine import ResidentIndex
+from commet_tpu_torch.engine.engine import ResidentIndex, ResidentPlanes
 
 
 def stream_index_from_jax(ika, ikb, ihib, mi, sa=None, sb=None, sc=None,
@@ -51,3 +54,21 @@ def resident_from_jax(jres, device="cpu"):
              for sx in jres.partitions]
     return ResidentIndex(jres.name, parts, int(jres.nb_indexed),
                          int(jres.total_kmers), float(jres.build_seconds))
+
+
+def planes_from_jax(words, device="cpu") -> torch.Tensor:
+    """A commet_tpu plane set ([4 * plane_words] uint32, as numpy) as the
+    port's [4 * plane_words] int32 tensor with the same bits, in memory of
+    its own (the port's build updates planes in place)."""
+    return host_u32(np.array(words, dtype=np.uint32).reshape(-1)).to(
+        torch.device(device))
+
+
+def resident_planes_from_jax(jres, device="cpu") -> ResidentPlanes:
+    """The port's ResidentPlanes holding the plane sets of a commet_tpu
+    ResidentPlanes."""
+    return ResidentPlanes(jres.name,
+                          [planes_from_jax(p, device) for p in jres.partitions],
+                          [float(f) for f in jres.fills],
+                          int(jres.nb_indexed), int(jres.total_kmers),
+                          float(jres.build_seconds))

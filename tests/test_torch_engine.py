@@ -1,8 +1,9 @@
-"""The port's Engine (device="cpu": the join's plain PyTorch version) against
-commet_tpu's Engine with the stream forced on (COMMET_TPU_STREAM=force, the
-Pallas join in interpret mode), on the same numpy-seeded fasta sets:
-identical .bv bytes and .log counter lines. k=33 is held against the
-reference oracle."""
+"""The port's Engine on its sorted-index route (COMMET_TPU_STREAM=force;
+device="cpu": the join's plain PyTorch version) against commet_tpu's Engine
+with the stream forced on (the Pallas join in interpret mode) or on its
+dense planes, on the same numpy-seeded fasta sets: identical .bv bytes and
+.log counter lines. k=33 is held against the reference oracle. The port's
+plane route is tested in test_torch_planes_engine.py."""
 
 import numpy as np
 import pytest
@@ -44,6 +45,7 @@ def test_engine_matches_jax(tmp_path, monkeypatch, k, n_frac, max_kmer,
     want_c, want = run_engine(_jax_engine(monkeypatch, k, max_kmer, jax_stream),
                         idx_fa, qry_fas, str(tmp_path / "jax"))
     monkeypatch.setattr(tengine, "STREAM_BATCH", stream_batch)
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     eng = tengine.Engine(k=k, t=T, device="cpu", max_kmer=max_kmer)
     fallback_rows = []
     real = eng._search_stream_fallback

@@ -1,7 +1,7 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA join kernels
-(single-index and grouped) against their plain PyTorch versions, and the
-engine on the card against the engine on the CPU. Each skips without a CUDA
-card. The file imports no JAX,
+(single-index and grouped) and plane kernels (build, probe, grouped probe)
+against their plain PyTorch versions, and the engine on the card against the
+engine on the CPU. Each skips without a CUDA card. The file imports no JAX,
 so on a machine without JAX it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
@@ -16,15 +16,18 @@ import torch
 
 from commet_tpu.io.reads import ReadSet
 
+from commet_tpu_torch.core import keys
+from commet_tpu_torch.core import planes as tplanes
 from commet_tpu_torch.core import stream as tstream
 from commet_tpu_torch.engine import engine as tengine
-from torch_helpers import index_pairs, make_fastas, query_pairs, run_engine
+from torch_helpers import (encode, implant, index_pairs, long_seq,
+                           make_fastas, query_pairs, random_seqs, run_engine)
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the join kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -70,6 +73,7 @@ def test_engine_cuda_matches_cpu(tmp_path, monkeypatch, cuda_device):
     Engine(device="cpu") (plain version): identical bytes and counters."""
     idx_fa, qry_fas, _ = make_fastas(tmp_path, 909, 21, 0.02, n_queries=2)
     monkeypatch.setattr(tengine, "STREAM_BATCH", 64)
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     before = tstream.join_membership.launches
     _c, got = run_engine(tengine.Engine(k=21, t=2, device=cuda_device),
                          idx_fa, qry_fas, str(tmp_path / "cuda"))
@@ -156,6 +160,7 @@ def test_search_multi_set_cuda_matches_cpu(tmp_path, monkeypatch,
         qrys += qry_fas
     qry = qrys[0]  # holds fragments of I0
     monkeypatch.setattr(tengine, "STREAM_BATCH", 64)
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     got = {}
     for dev in (cuda_device, "cpu"):
         eng = tengine.Engine(k=21, t=2, device=dev, max_kmer=2000)
@@ -183,5 +188,161 @@ def test_search_multi_set_cuda_matches_cpu(tmp_path, monkeypatch,
         got[str(dev)] = ({n: {f: v[f] for f in ("indexed", "searched",
                                                 "shared")}
                           for n, v in c.items()}, blobs)
+    assert got[str(cuda_device)] == got["cpu"]
+    assert got["cpu"][0]["I0"]["shared"] > 0
+
+
+def _pack(codes, clean):
+    """[n, L] uint8 codes -> (codes2, aux) int32 tensors: aux the lengths
+    (clean) or the validity words; packed as the native packer does."""
+    n, length = codes.shape
+    w16, w32 = -(-length // 16), -(-length // 32)
+    c = np.zeros((n, w16 * 16), dtype=np.uint64)
+    c[:, :length] = np.where(codes < 4, codes, 0)
+    c2 = (c.reshape(n, w16, 16) << (2 * np.arange(16, dtype=np.uint64))
+          ).sum(axis=2).astype(np.uint32)
+    if clean:
+        return (keys.host_u32(c2),
+                torch.from_numpy((codes < 4).sum(axis=1).astype(np.int32)))
+    v = np.zeros((n, w32 * 32), dtype=np.uint64)
+    v[:, :length] = codes < 4
+    vd = (v.reshape(n, w32, 32) << np.arange(32, dtype=np.uint64)).sum(
+        axis=2).astype(np.uint32)
+    return keys.host_u32(c2), keys.host_u32(vd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [15, 21, 33])
+def test_plane_kernels_match_plain_on_card(cuda_device, k):
+    """commet_build_planes, commet_probe_planes and
+    commet_probe_planes_multi against their plain versions on the card:
+    dirty and clean batches, an all-T read, t in {1, 2, 17}, reads holding
+    2k and 18k fragments, S = 3 against three single probes. Exact
+    equality."""
+    rng = np.random.default_rng(300 + k)
+    idx = [long_seq(rng, 700)] + random_seqs(rng, 3000, 40, 120,
+                                             n_frac=0.01)
+    idx.append(b"T" * 90)
+    dirty = encode(idx[:1500])
+    clean = encode([s for s in idx[1500:] if b"N" not in s.upper()])
+    qry = random_seqs(rng, 2000, 20, 150, n_frac=0.01)
+    implant(rng, idx[1:], qry, k, span=2)
+    q = bytearray(long_seq(rng, 700))
+    q[100:100 + 18 * k] = idx[0][50:50 + 18 * k]
+    qry.append(bytes(q))
+    sets = []
+    for batches in ([(dirty, False), (clean, True)], [(clean, True)]):
+        got = tplanes.alloc_planes(k, cuda_device)
+        want = tplanes.alloc_planes(k, cuda_device)
+        for codes, is_clean in batches:
+            c2, aux = (x.to(cuda_device) for x in _pack(codes, is_clean))
+            before = tplanes.build_planes.launches
+            tplanes.build_planes(got, c2, aux, is_clean, codes.shape[1], k)
+            torch.cuda.synchronize()
+            assert tplanes.build_planes.launches == before + 1
+            tplanes.build_planes_plain(want, c2, aux, is_clean,
+                                       codes.shape[1], k)
+        assert torch.equal(got, want)
+        sets.append(got)
+    sets.append(tplanes.alloc_planes(k, cuda_device))
+    slots = tplanes.PlaneSlots(sets)
+    dirty = encode(qry)
+    inside = np.arange(dirty.shape[1]) < np.array([len(s) for s in qry])[
+        :, None]
+    clean = np.where((dirty == 4) & inside, 0, dirty).astype(np.uint8)
+    for t in (1, 2, 17):
+        for codes, is_clean in ((dirty, False), (clean, True)):
+            c2, aux = (x.to(cuda_device) for x in _pack(codes, is_clean))
+            length = codes.shape[1]
+            wmax = int((codes < 4).sum(axis=1).max()) - k + 1
+            before = (tplanes.probe_planes.launches,
+                      tplanes.probe_planes_multi.launches)
+            one = tplanes.probe_planes(sets[0], c2, aux, is_clean, length, k,
+                                       t, wmax)
+            multi = tplanes.probe_planes_multi(slots, c2, aux, is_clean,
+                                               length, k, t, wmax)
+            torch.cuda.synchronize()
+            assert (tplanes.probe_planes.launches,
+                    tplanes.probe_planes_multi.launches) == (
+                        before[0] + 1, before[1] + 1)
+            want = tplanes.probe_planes_multi_plain(
+                slots.planes, c2, aux, is_clean, length, k, t, wmax)
+            assert torch.equal(one, want[0])
+            assert torch.equal(multi, want)
+            assert bool(multi[0, -1])  # the 18k fragment
+            assert not multi[2].any()
+            if t <= 2:  # the reads holding 2k fragments
+                assert int(multi[0].sum()) > 100
+
+
+@pytest.mark.gpu
+def test_plane_kernels_reject_bad_inputs(cuda_device):
+    k = 15
+    pl = tplanes.alloc_planes(k, cuda_device)
+    c2 = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    ln = torch.full((4,), 30, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # planes of another k
+        tplanes.build_planes(pl, c2, ln, True, 32, k + 1)
+    with pytest.raises(ValueError):  # planes on the CPU
+        tplanes.probe_planes(pl.cpu(), c2, ln, True, 32, k, 2)
+    with pytest.raises(ValueError):  # int64 lengths
+        tplanes.probe_planes(pl, c2, ln.long(), True, 32, k, 2)
+    with pytest.raises(ValueError):  # too few words for the length
+        tplanes.probe_planes(pl, c2, ln, True, 33, k, 2)
+    with pytest.raises(ValueError):
+        tplanes.PlaneSlots([pl, pl.cpu()])
+    slots = tplanes.PlaneSlots([pl, pl])
+    with pytest.raises(ValueError):  # batch on the CPU
+        tplanes.probe_planes_multi(slots, c2.cpu(), ln.cpu(), True, 32, k, 2)
+    out = tplanes.probe_planes_multi(slots, c2[:0], ln[:0], True, 32, k, 2)
+    assert out.shape == (2, 0)
+
+
+@pytest.mark.gpu
+def test_search_multi_set_planes_cuda_matches_cpu(tmp_path, monkeypatch,
+                                                  cuda_device):
+    """The plane route on the card (build and probe kernels, several
+    batches, slot groups of two, a lone slot) and on the CPU: identical
+    bytes, log lines and counters, for search_multi_set_planes and for
+    index_and_search."""
+    monkeypatch.setenv("COMMET_TPU_STREAM", "0")
+    monkeypatch.setattr(tengine, "STREAM_BATCH", 64)
+    paths, qrys = [], []
+    for s in range(3):
+        (tmp_path / f"s{s}").mkdir()
+        idx_fa, qry_fas, _ = make_fastas(tmp_path / f"s{s}", 520 + s, 21,
+                                         0.02)
+        paths.append(idx_fa)
+        qrys += qry_fas
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        eng = tengine.Engine(k=21, t=2, device=dev, max_kmer=2000)
+        res = []
+        for s, p in enumerate(paths):
+            rs = ReadSet(f"I{s}")
+            rs.add_file(p)
+            res.append(eng.build_resident_planes(rs))
+        assert sum(len(r.partitions) for r in res) > 3
+        out = str(tmp_path / str(dev))
+        os.makedirs(out)
+        q = ReadSet("Q")
+        q.add_file(qrys[0])
+        before = tplanes.probe_planes_multi.launches
+        c = eng.search_multi_set_planes(q, res, out_dir=out, log_dir=out,
+                                        max_slots=2)
+        if dev != "cpu":
+            assert tplanes.probe_planes_multi.launches > before + 2
+        _c, pair = run_engine(eng, paths[1], qrys[1:], out + "/pair")
+        blobs = {}
+        for name in sorted(os.listdir(out)):
+            if os.path.isdir(os.path.join(out, name)):
+                continue
+            with open(os.path.join(out, name), "rb") as f:
+                data = f.read()
+            blobs[name] = data.splitlines()[-1] if name.endswith(".log") \
+                else data
+        got[str(dev)] = ({n: {f: v[f] for f in ("indexed", "searched",
+                                                "shared")}
+                          for n, v in c.items()}, blobs, pair)
     assert got[str(cuda_device)] == got["cpu"]
     assert got["cpu"][0]["I0"]["shared"] > 0

@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it never imports JAX, a CUDA request without
-a card fails instead of running on the CPU, and the join wrapper takes its
-plain version only for CPU tensors."""
+a card fails instead of running on the CPU, and the join and plane wrappers
+take their plain versions only for CPU tensors."""
 
 import os
 import subprocess
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from commet_tpu_torch.cli import index_and_search as tias
+from commet_tpu_torch.core import planes as tplanes
 from commet_tpu_torch.core import stream as tstream
 from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine import engine as tengine
@@ -89,13 +90,51 @@ def test_join_wrapper_takes_plain_path_on_cpu():
 def test_build_memory_check_names_the_dense_plane_item(monkeypatch):
     """Before each build on the card the engine compares the partition's
     sorted-index cost with the free device memory and raises instead of
-    running out halfway (the card is faked: only the check runs)."""
+    running out halfway, naming the dense-plane route and how to take it
+    (the card is faked: only the check runs)."""
     eng = tengine.Engine(k=33, t=2, device="cpu")
     eng.device = torch.device("cuda", 0)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda dev: (8 << 30, 80 << 30))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 2 << 30)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 1 << 30)
-    with pytest.raises(MemoryError, match="dense-plane"):
+    with pytest.raises(MemoryError, match="dense-plane") as exc:
         eng._check_build_memory(tengine.max_kmer_for(33))
+    assert "COMMET_TPU_STREAM=0" in str(exc.value)
+    assert "COMMET_TPU_STREAM_MAX_FILL" in str(exc.value)
     eng._check_build_memory((9 << 30) // tengine.BUILD_BYTES_PER_KMER)
+
+
+def test_plane_wrappers_take_plain_path_on_cpu():
+    """CPU tensors run the plain versions and count no launch; a wrong
+    dtype, shape, plane size or device raises."""
+    k = 8
+    counts = (tplanes.build_planes.launches, tplanes.probe_planes.launches,
+              tplanes.probe_planes_multi.launches)
+    pl = tplanes.alloc_planes(k, "cpu")
+    assert pl.shape == (4 * 8,) and pl.dtype == torch.int32
+    # one read ACGTACGTAC (codes 0 1 2 3 ...), 2 bits each, N-free
+    word = sum(((i % 4) << (2 * i)) for i in range(10))
+    c2 = torch.tensor([[word]], dtype=torch.int32)
+    ln = torch.tensor([10], dtype=torch.int32)
+    tplanes.build_planes(pl, c2, ln, True, 16, k)
+    assert int((pl != 0).sum()) > 0
+    assert tplanes.probe_planes(pl, c2, ln, True, 16, k, 1).tolist() == [True]
+    slots = tplanes.PlaneSlots([pl, tplanes.alloc_planes(k, "cpu")])
+    assert tplanes.probe_planes_multi(slots, c2, ln, True, 16, k,
+                                      1).tolist() == [[True], [False]]
+    assert (tplanes.build_planes.launches, tplanes.probe_planes.launches,
+            tplanes.probe_planes_multi.launches) == counts
+    with pytest.raises(ValueError):  # planes of another k
+        tplanes.probe_planes(pl, c2, ln, True, 16, 9, 1)
+    with pytest.raises(ValueError):  # int64 words
+        tplanes.build_planes(pl, c2.long(), ln, True, 16, k)
+    with pytest.raises(ValueError):  # too few words for the length
+        tplanes.probe_planes(pl, c2, ln, True, 17, k, 1)
+    with pytest.raises(ValueError):  # validity words missing
+        tplanes.probe_planes(pl, c2, ln, False, 16, k, 1)
+    with pytest.raises(ValueError):  # plane sets of two sizes
+        tplanes.PlaneSlots([pl, tplanes.alloc_planes(k + 1, "cpu")])
+    with pytest.raises(ValueError):
+        tplanes.probe_planes(pl.to("meta"), c2.to("meta"), ln.to("meta"),
+                             True, 16, k, 1)

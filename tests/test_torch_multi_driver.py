@@ -1,8 +1,11 @@
 """The port's commet driver on its default, amortized schedule against
 commet_tpu's driver (stream forced on, the Pallas join in interpret mode) and
 against its own classic rounds, with and without --one_vs_all: every .bv and
-CSV byte-identical; a set that cannot stay resident sends the driver to the
-classic rounds with a printed line."""
+CSV byte-identical; a set that cannot stay resident, as a sorted index or in
+plane cohorts, sends the driver to the classic rounds with a printed line.
+Both drivers run the sorted-index route (COMMET_TPU_STREAM=force): these
+small sets are above the fill gate. The plane cohorts are tested in
+test_torch_planes_driver.py."""
 
 import glob
 
@@ -91,16 +94,19 @@ def test_driver_one_vs_all_matches_jax(tmp_path, monkeypatch):
 
 def test_driver_falls_back_to_classic_with_a_line(tmp_path, monkeypatch,
                                                   capsys):
-    """A set over the resident budget: the classic rounds run, the line
-    says so, and the outputs are unchanged."""
+    """A set over the resident budget, with no room for plane cohorts: the
+    classic rounds run, the line says so, and the outputs are unchanged."""
     k = 15
     fof = _driver_sets(tmp_path, k, n_sets=3)
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     want = _driver(tcommet, fof, str(tmp_path / "a") + "/", k,
                    ["--device", "cpu"])
     capsys.readouterr()
     monkeypatch.setenv("COMMET_TPU_RESIDENT_BUDGET", "10")
+    monkeypatch.setenv("COMMET_TPU_PLANES_BUDGET", "10")
     got = _driver(tcommet, fof, str(tmp_path / "b") + "/", k,
                   ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "schedule: classic rounds (S0 cannot stay resident" in out
+    assert "the plane cohorts decline" in out
     assert got == want

@@ -4,7 +4,8 @@ pairwise path: build_resident (and its refusals), search_multi_set
 residents, slot grouping, long reads) and the stream batch geometry that
 follows the read length. The JAX side runs with the stream forced on and the
 Pallas join in interpret mode; tags, counter lines and bytes must be
-identical."""
+identical. The port's resident sorted indexes are asked for with
+COMMET_TPU_STREAM=force: these small sets are above the fill gate."""
 
 import glob
 import os
@@ -79,7 +80,7 @@ def test_search_multi_set_matches_jax(tmp_path, monkeypatch, max_kmer):
     assert got_c["I0"]["shared"] > 0 and got_c["I2"]["shared"] > 0
 
 
-def test_search_multi_set_edge_residents(tmp_path):
+def test_search_multi_set_edge_residents(tmp_path, monkeypatch):
     """A resident without eligible reads (no partitions), one whose last
     partition holds only reads shorter than k (mi = 0), and a plain one:
     the pairwise bytes and counters."""
@@ -93,6 +94,7 @@ def test_search_multi_set_edge_residents(tmp_path):
     with open(qpath, "rb") as f:
         n_reads = f.read().count(b">")
     BitVector(n_reads).write(str(none))  # no read passes the filter
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     sets = [lambda: read_set("I0", idx_paths[0]),
             lambda: read_set("TAIL", str(tmp_path / "tail.fa")),
             lambda: _empty_set(qpath, str(none))]
@@ -119,10 +121,11 @@ def test_search_multi_set_edge_residents(tmp_path):
     assert got_c["NONE"]["searched"] == 0 and got_c["NONE"]["shared"] == 0
 
 
-def test_max_slots_grouping(tmp_path):
+def test_max_slots_grouping(tmp_path, monkeypatch):
     """One-slot groups and one 32-slot group give the same counters and
     bytes."""
     k = 15
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     idx_paths, qpath = multi_sets(tmp_path, 17, k, n_sets=4, n_idx=40,
                                    n_qry=80)
     eng = tengine.Engine(k=k, t=T, device="cpu", max_kmer=900)
@@ -145,6 +148,7 @@ def test_max_slots_grouping(tmp_path):
 def test_build_resident_refusals(tmp_path, monkeypatch):
     idx_paths, _q = multi_sets(tmp_path, 3, 15, n_sets=1)
     rs = read_set("I0", idx_paths[0])
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     assert tengine.Engine(k=35, t=T, device="cpu").build_resident(rs) is None
     eng = tengine.Engine(k=15, t=T, device="cpu")
     assert eng.build_resident(rs, budget=10.0) is None
@@ -163,6 +167,7 @@ def test_build_resident_refuses_before_the_build_check(tmp_path,
     before build_index's own memory check could raise."""
     idx_paths, _q = multi_sets(tmp_path, 4, 15, n_sets=1)
     rs = read_set("I0", idx_paths[0])
+    monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     eng = tengine.Engine(k=15, t=T, device="cpu")
     eng.device = torch.device("cuda", 0)
     free = tengine.STREAM_BATCH_BYTES + 1000
