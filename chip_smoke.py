@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch / CUDA port (commet_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plane-kernels
 
-Phases, each printing one line with its seconds:
+With --plane-kernels it runs phases 1, 2 and 9's timed part only and
+prints their figures as one JSON line (to time two versions of the plane
+kernels: run it in a checkout of each, in turns). Phases, each printing one
+line with its seconds:
   1. card: the GPU's name and power limit (nvidia-smi) and torch's name;
   2. build: every hand-written kernel from commet_tpu_torch/core/csrc/
      (join.cu: commet_join, commet_join_multi; planes.cu:
@@ -44,7 +48,15 @@ Phases, each printing one line with its seconds:
      the planes then filled from 4M random reads; the probe of a 65,536-read
      batch (a third holding 66 bp fragments of indexed reads) against its
      plain version (equal tags); the grouped probe at S = 3 against its
-     plain version and three single probes; all timed by CUDA events;
+     plain version and three single probes; all timed by CUDA events, each
+     beside its bound (the bytes it must move at the HBM rate: the distinct
+     plane sectors its atomics or needed loads touch on this run's data)
+     and its share of the bound, and beside PyTorch's own index_add_ and
+     gather at the same addresses and at as many random ones;
+     then the edge shapes: build, probe and grouped probe against their
+     plain versions at k in {15, 21, 31, 33}, t in {1, 2, 17}, S in
+     {1, 3, 32}, dirty batches with internal Ns and clean ones, reads
+     shorter than k, 100 and 300 bp reads;
  10. planes main path: commet -k 33 -t 2 (COMMET's defaults) on four sets of
      4M reads x 100 bp made as in phase 6 with 66 bp fragments, every
      fragment N-free (the 1% N reads are drawn among the reads that hold or
@@ -53,7 +65,8 @@ Phases, each printing one line with its seconds:
      probe S = 3 slots for set 4, launch every plane kernel, and match the
      known shared counts.
 Each main path runs with every kernel's launch count set to 0 just before
-it and read just after.
+it and read just after. At the end no module of JAX or of the JAX package
+(commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -94,6 +107,18 @@ PLANE_K = 33
 PLANE_BATCH = 65536
 PLANE_FILL_READS = 4_000_000
 PLANE_SET_READS = 4_000_000
+# the plane kernels' edge shapes (phase 9): k, t and slot counts
+EDGE_K = (15, 21, 31, 33)
+EDGE_T = (1, 2, 17)
+EDGE_S = (1, 3, 32)
+# least-time bounds: the H100 SXM's HBM rate (NVIDIA's data sheet) and the
+# 32 B sector, the least the card moves for a random access
+HBM_BYTES_PER_S = 3.35e12
+SECTOR = 32
+# no single PyTorch call computes a kernel's function (no scatter-OR, no
+# four-plane test with a greedy count, no three-way join verdict), so no
+# library time; every kernel is bound by the bytes it moves
+NO_LIBRARY = {"bound_by": "bytes", "library_ms": None}
 
 
 def log(msg: str) -> None:
@@ -112,6 +137,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: int) -> float:
+    """Least milliseconds the card needs to move ``n_bytes`` at its HBM
+    rate. The plane and join kernels do integer compares and bit tests,
+    far below any peak rate per byte, so the bytes bound them."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def join_bytes(ikas, mis, qa, verdicts) -> int:
+    """Least bytes a join of the sorted query pairs (2 x int64, read once)
+    against S indexes must move: the queries, the [S, M] int8 verdicts
+    written once and, per index, the sectors it cannot avoid: the ika
+    sector at each query's lower-bound position, and the ikb sector there
+    for each query whose keya is in the index (distinct sectors)."""
+    import torch
+    from commet_tpu_torch.core import stream
+    total = qa.numel() * 16 + verdicts.numel()
+    for ika, mi, v in zip(ikas, mis, verdicts.reshape(len(mis), -1)):
+        if mi == 0:
+            continue
+        pos = torch.searchsorted(ika[:mi], qa).clamp_(max=mi - 1) // 4
+        total += SECTOR * (torch.unique(pos).numel()
+                           + torch.unique(pos[v != stream.NONMEM]).numel())
+    return total
 
 
 def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
@@ -173,8 +223,10 @@ def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
         return sk, skb, out
 
     sort_ms = cuda_ms(sort_unsort, 10)
+    bound = bound_ms(join_bytes([sidx.ika], [sidx.mi], qa_s, got))
     return {"counts": counts, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "unsorted_ms": unsorted_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "unsorted_ms": unsorted_ms,
             "sort_unsort_ms": sort_ms, "mi": sidx.mi,
             "launches": stream.join_membership.launches,
             "sidx": sidx, "queries": (qa_s, qb_s), "verdicts": got}
@@ -234,6 +286,7 @@ def phase_multi_kernel(device, rng, kern):
     ms = cuda_ms(kernel, 10)
     plain_ms = cuda_ms(plain, 3)
     singles_ms = cuda_ms(singles, 10)
+    bound = bound_ms(join_bytes(slots.ikas, slots.mis, qa_s, got))
 
     # one probe batch of the main path's shape against the three indexes:
     # random N-free 100 bp reads
@@ -276,7 +329,7 @@ def phase_multi_kernel(device, rng, kern):
     torch.cuda.synchronize()
     peak1 = torch.cuda.max_memory_allocated() - base
     return {"counts": counts, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "singles_ms": singles_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "singles_ms": singles_ms,
             "stages": stages, "n_keys": n_keys,
             "bytes_per_key_s3": peak / n_keys,
             "bytes_per_key_s1": peak1 / n_keys}
@@ -328,6 +381,69 @@ def _plane_fill(pl, k: int) -> float:
     return ones / float(w * 32)
 
 
+def _complete_windows(lengths, length: int, k: int) -> int:
+    """Complete windows of N-free reads of ``lengths`` in a batch padded to
+    ``length``."""
+    return int((lengths.clamp(max=length) - k + 1).clamp(min=0).sum())
+
+
+def _sectors(words) -> int:
+    """Distinct 32 B sectors (8 words) among int64 word addresses."""
+    import torch
+    return torch.unique(words >> 3).numel()
+
+
+def _build_addrs(c2, lengths, length: int, k: int):
+    """Word addresses, into one four-plane set, of the build's atomics on
+    these N-free reads: four per complete window, repeats kept."""
+    import torch
+    from commet_tpu_torch.core import keys, planes
+    a, b = keys.index_keys(keys.unpack_codes_clean(c2, lengths, length), k)
+    w = planes.plane_words(k)
+    return torch.cat([p * w + (key >> 5) for p, key in
+                      enumerate(planes.four_plane_keys(a, b))])
+
+
+def _probe_addrs(pl, c2, lengths, length: int, k: int, t: int, wmax: int):
+    """Word addresses, into ``pl``, of the plane loads the sequential probe
+    needs on these N-free reads, repeats kept: per strand, a plane-A load
+    for each window it reaches (complete, at or past the greedy skip,
+    before the count reaches t) and B, C, D loads for each of those whose
+    A bit is set; the reverse strand only for reads whose forward count
+    stays below t."""
+    import torch
+    from commet_tpu_torch.core import keys, planes
+    wk = keys.window_keys(keys.unpack_codes_clean(c2, lengths, length), k,
+                          "both", wmax)
+    ok = wk["ok"]
+    n = ok.shape[0]
+    pw = planes.plane_words(k)
+    counting = torch.ones(n, dtype=torch.bool, device=ok.device)
+    addrs = []
+    for s in ("f", "r"):
+        a = torch.where(ok, wk[s + "a"], 0)
+        b = torch.where(ok, wk[s + "b"], 0)
+        word, bit = planes.plane_addr(a)
+        hit_a = ((pl[word].to(torch.int64) >> bit) & 1 == 1) & ok
+        member = planes._plane_member(pl, a, b, k) & ok
+        cnt = torch.zeros(n, dtype=torch.int64, device=ok.device)
+        allow = torch.zeros_like(cnt)
+        live = counting.clone()
+        reached = torch.zeros_like(ok)
+        for w in range(ok.shape[1]):
+            reach = live & ok[:, w] & (allow <= w)
+            reached[:, w] = reach
+            got = reach & member[:, w]
+            cnt += got
+            allow = torch.where(got, w + k, allow)
+            live &= cnt < t
+        counting &= cnt < t
+        for p, key in enumerate(planes.four_plane_keys(a, b)):
+            addrs.append(p * pw + (key[reached if p == 0 else
+                                       reached & hit_a] >> 5))
+    return torch.cat(addrs)
+
+
 def phase_plane_kernels(device, gen_seed: int):
     """The plane kernels at k = 33 (4 GiB plane sets) against their plain
     versions: the build on one 65,536-read x 100 bp batch (word-for-word
@@ -336,10 +452,12 @@ def phase_plane_kernels(device, gen_seed: int):
     of one 65,536-read batch, a third of whose reads hold a 66 bp fragment
     of an indexed read, kernel vs plain (equal tags, every fragment read
     tagged); the grouped probe at S = 3 vs its plain version and vs three
-    single launches."""
+    single launches. Each kernel's bound: the bytes it must move at the
+    HBM rate (bound_ms)."""
     import torch
     from commet_tpu_torch.core import planes
     k, n, lpad = PLANE_K, PLANE_BATCH, 128
+    wmax = READ_LEN - k + 1
     gen = torch.Generator(device=device)
     gen.manual_seed(gen_seed)
     words = torch.randint(-2 ** 31, 2 ** 31, (PLANE_FILL_READS, lpad // 16),
@@ -363,13 +481,23 @@ def phase_plane_kernels(device, gen_seed: int):
         raise AssertionError(f"build kernel differs from its plain version "
                              f"in {int((kern != plain).sum())} words")
     reps = 4  # fresh batches: each call sets new bits, as a build does
-    ms = _events_ms([lambda b=b: build(kern, b) for b in batches[1:1 + reps]])
-    plain_ms = _events_ms([lambda b=b: build_plain(plain, b)
-                           for b in batches[1:1 + reps]])
+    timed = batches[1:1 + reps]
+    ms = _events_ms([lambda b=b: build(kern, b) for b in timed])
+    plain_ms = _events_ms([lambda b=b: build_plain(plain, b) for b in timed])
     if not torch.equal(kern, plain):
         raise AssertionError("build kernel differs from its plain version "
                              "after the timed batches")
     build_err = int((kern != plain).sum())
+    # each batch: its words and lengths read once, and every distinct plane
+    # sector its atomics touch read and written once
+    build_windows = sum(_complete_windows(lengths[:len(b)], lpad, k)
+                        for b in timed) // reps
+    build_addrs = [_build_addrs(b, lengths[:len(b)], lpad, k) for b in timed]
+    build_sectors = sum(_sectors(x) for x in build_addrs) // reps
+    build_bytes = (timed[0].numel() * 4 + n * 4
+                   + 2 * SECTOR * build_sectors)
+    yard = _atomic_yardsticks(build_addrs[0], 4 * planes.plane_words(k), gen)
+    del build_addrs
     t0 = time.perf_counter()
     for b in batches[1 + reps:]:
         build(kern, b)
@@ -395,12 +523,11 @@ def phase_plane_kernels(device, gen_seed: int):
         qcodes, ((0, 0), (0, lpad - READ_LEN)))).view(np.int32)).to(device)
 
     def probe(pl):
-        return planes.probe_planes(pl, qc2, lengths, True, lpad, k, T,
-                                   READ_LEN - k + 1)
+        return planes.probe_planes(pl, qc2, lengths, True, lpad, k, T, wmax)
 
     def probe_plain(pl):
         return planes.probe_planes_plain(pl, qc2, lengths, True, lpad, k, T,
-                                         READ_LEN - k + 1)
+                                         wmax)
 
     got, want = probe(kern), probe_plain(kern)
     torch.cuda.synchronize()
@@ -413,6 +540,13 @@ def phase_plane_kernels(device, gen_seed: int):
     tagged_random = int(got[third:].sum())
     probe_ms = cuda_ms(lambda: probe(kern), 10)
     probe_plain_ms = cuda_ms(lambda: probe_plain(kern), 3)
+    # the batch read once, the tags written once, and every distinct plane
+    # sector of the loads the probe needs read once
+    batch_bytes = qc2.numel() * 4 + n * 4
+    probe_addrs = _probe_addrs(kern, qc2, lengths, lpad, k, T, wmax)
+    probe_loads, probe_sectors = probe_addrs.numel(), _sectors(probe_addrs)
+    yard.update(_gather_yardsticks(kern, probe_addrs, gen))
+    del probe_addrs
 
     # S = 3: the filled set, the plain-built set, one more from 1M reads
     third_set = planes.alloc_planes(k, device)
@@ -425,12 +559,11 @@ def phase_plane_kernels(device, gen_seed: int):
 
     def multi():
         return planes.probe_planes_multi(slots, qc2, lengths, True, lpad, k,
-                                         T, READ_LEN - k + 1)
+                                         T, wmax)
 
     def multi_plain():
         return planes.probe_planes_multi_plain(slots.planes, qc2, lengths,
-                                               True, lpad, k, T,
-                                               READ_LEN - k + 1)
+                                               True, lpad, k, T, wmax)
 
     def singles():
         return [probe(pl) for pl in slots.planes]
@@ -448,16 +581,165 @@ def phase_plane_kernels(device, gen_seed: int):
     multi_ms = cuda_ms(multi, 10)
     multi_plain_ms = cuda_ms(multi_plain, 3)
     singles_ms = cuda_ms(singles, 10)
+    multi_loads = multi_sectors = 0
+    for pl in slots.planes:  # distinct sectors per plane set
+        addrs = _probe_addrs(pl, qc2, lengths, lpad, k, T, wmax)
+        multi_loads += addrs.numel()
+        multi_sectors += _sectors(addrs)
     return {
         "build": {"max_abs_err": build_err, "ms": ms / reps,
-                  "plain_ms": plain_ms / reps},
+                  "plain_ms": plain_ms / reps,
+                  "bound_ms": bound_ms(build_bytes)},
         "probe": {"max_abs_err": probe_err, "ms": probe_ms,
-                  "plain_ms": probe_plain_ms},
+                  "plain_ms": probe_plain_ms,
+                  "bound_ms": bound_ms(batch_bytes
+                                       + SECTOR * probe_sectors)},
         "multi": {"max_abs_err": multi_err, "ms": multi_ms,
-                  "plain_ms": multi_plain_ms},
+                  "plain_ms": multi_plain_ms,
+                  "bound_ms": bound_ms(batch_bytes + 2 * n * 4
+                                       + SECTOR * multi_sectors)},
         "singles_ms": singles_ms, "fill": fill, "fill_s": fill_s,
+        "build_windows": build_windows, "build_sectors": build_sectors,
+        "probe_loads": probe_loads, "probe_sectors": probe_sectors,
+        "multi_loads": multi_loads, "multi_sectors": multi_sectors,
+        "yardsticks": yard,
         "tagged": [int(x.sum()) for x in mgot],
         "tagged_random": tagged_random}
+
+
+def _atomic_yardsticks(addrs, words: int, gen) -> dict:
+    """PyTorch's own atomics at the build's address mix: ms of
+    ``index_add_`` of int32 ones into a zeroed four-plane set at the
+    build's word addresses (all four planes, then plane D's alone), and at
+    as many uniform random words of the set."""
+    import torch
+    arr = torch.zeros(words, dtype=torch.int32, device=addrs.device)
+    d = addrs[3 * addrs.numel() // 4:]  # four_plane_keys order: A, B, C, D
+    out = {}
+    for name, idx in (("build_addrs", addrs), ("d_addrs", d)):
+        ones = torch.ones(idx.numel(), dtype=torch.int32, device=idx.device)
+        rnd = torch.randint(0, words, (idx.numel(),), device=idx.device,
+                            generator=gen)
+        out[f"index_add_{name}_ms"] = cuda_ms(
+            lambda: arr.index_add_(0, idx, ones), 10)
+        out[f"index_add_{name}_random_ms"] = cuda_ms(
+            lambda: arr.index_add_(0, rnd, ones), 10)
+    return out
+
+
+def _gather_yardsticks(pl, addrs, gen) -> dict:
+    """PyTorch's own gather at the probe's loads: ms of ``pl[addrs]`` at
+    the word addresses the probe needs, and at as many uniform random
+    words of the set."""
+    import torch
+    rnd = torch.randint(0, pl.numel(), (addrs.numel(),), device=pl.device,
+                        generator=gen)
+    return {"gather_probe_addrs_ms": cuda_ms(lambda: pl[addrs], 10),
+            "gather_random_ms": cuda_ms(lambda: pl[rnd], 10)}
+
+
+def _edge_reads(rng, n: int, k: int, n_frac: float):
+    """[n, 320] codes (4 = N or past the read's end) of reads whose lengths
+    mix shorter than k (a fifth), 100 bp and 300 bp, with Ns at n_frac."""
+    lens = rng.choice([100, 300], n)
+    lens[:n // 5] = rng.integers(1, k, n // 5)
+    codes = rng.integers(0, 4, (n, 320), dtype=np.uint8)
+    codes[rng.random((n, 320)) < n_frac] = 4
+    codes[np.arange(320) >= lens[:, None]] = 4
+    return codes, lens
+
+
+def _edge_pack(device, codes, lens, clean: bool):
+    """(codes2, aux) of ``codes`` on the card: aux the lengths (clean: the
+    Ns become A) or the validity words."""
+    import torch
+    n, length = codes.shape
+    body = np.arange(length) < lens[:, None]
+    c2 = torch.from_numpy(_pack_codes(np.where(codes < 4, codes, 0)
+                                      ).view(np.int32)).to(device)
+    if clean:
+        return c2, torch.from_numpy(lens.astype(np.int32)).to(device)
+    v = (codes < 4) & body
+    words = np.bitwise_or.reduce(
+        v.reshape(n, length // 32, 32).astype(np.uint32)
+        << np.arange(32, dtype=np.uint32), axis=2)
+    return c2, torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def phase_plane_edges(device, rng):
+    """The plane kernels against their plain versions at edge shapes, for k
+    in EDGE_K: dirty batches (internal Ns, validity words) and clean ones
+    (lengths), reads shorter than k, 100 and 300 bp reads (up to nine
+    32-window chunks a strand), queries holding a 2k fragment of an indexed
+    read and 300 bp queries holding a whole indexed 300 bp read; t in
+    EDGE_T, the grouped probe at S in EDGE_S (slots cycling over the built
+    set, a second set and an empty one). Returns the cases checked."""
+    import torch
+    from commet_tpu_torch.core import planes
+    cases = 0
+    for k in EDGE_K:
+        idx, idx_lens = _edge_reads(rng, 20_000, k, 0.003)
+        got = planes.alloc_planes(k, device)
+        want = planes.alloc_planes(k, device)
+        for clean in (False, True):
+            c2, aux = _edge_pack(device, idx, idx_lens, clean)
+            planes.build_planes(got, c2, aux, clean, 320, k)
+            planes.build_planes_plain(want, c2, aux, clean, 320, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"k={k}: build kernel differs from its "
+                                 f"plain version in "
+                                 f"{int((got != want).sum())} words")
+        other = planes.alloc_planes(k, device)
+        c2, aux = _edge_pack(device, idx[::-1].copy(), idx_lens[::-1].copy(),
+                             True)
+        planes.build_planes(other, c2, aux, True, 320, k)
+        empty = planes.alloc_planes(k, device)
+        qry, q_lens = _edge_reads(rng, 4000, k, 0.003)
+        long_rows = np.nonzero(idx_lens == 300)[0]
+        for i in range(0, 4000, 2):  # even queries: an indexed fragment
+            d = long_rows[rng.integers(len(long_rows))]
+            if i % 8 == 0:  # a whole indexed 300 bp read
+                qry[i], q_lens[i] = idx[d], 300
+            elif q_lens[i] >= 2 * k:
+                at = rng.integers(0, q_lens[i] - 2 * k + 1)
+                src = rng.integers(0, 300 - 2 * k + 1)
+                qry[i, at:at + 2 * k] = idx[d, src:src + 2 * k]
+        sets = {s: planes.PlaneSlots([(got, other, empty)[j % 3]
+                                      for j in range(s)]) for s in EDGE_S}
+        for clean in (False, True):
+            c2, aux = _edge_pack(device, qry, q_lens, clean)
+            for t in EDGE_T:
+                for wmax in (320 - k + 1, 100 - k + 1):
+                    one = planes.probe_planes(got, c2, aux, clean, 320, k, t,
+                                              wmax)
+                    ref = planes.probe_planes_plain(got, c2, aux, clean, 320,
+                                                    k, t, wmax)
+                    torch.cuda.synchronize()
+                    if not torch.equal(one, ref):
+                        raise AssertionError(
+                            f"k={k} t={t} clean={clean} wmax={wmax}: probe "
+                            f"kernel differs from its plain version on "
+                            f"{int((one != ref).sum())} reads")
+                    if t <= 2 and int(one.sum()) < 200:
+                        raise AssertionError(f"k={k} t={t}: only "
+                                             f"{int(one.sum())} reads tagged")
+                    for s, slots in sets.items():
+                        multi = planes.probe_planes_multi(
+                            slots, c2, aux, clean, 320, k, t, wmax)
+                        ref = planes.probe_planes_multi_plain(
+                            slots.planes, c2, aux, clean, 320, k, t, wmax)
+                        torch.cuda.synchronize()
+                        if not torch.equal(multi, ref):
+                            raise AssertionError(
+                                f"k={k} t={t} S={s} clean={clean} "
+                                f"wmax={wmax}: grouped probe differs from "
+                                f"its plain version on "
+                                f"{int((multi != ref).sum())} tags")
+                        cases += 1
+        del got, want, other, empty, sets
+        torch.cuda.empty_cache()
+    return cases
 
 
 def phase_golden(device: str, tmp: str) -> str:
@@ -762,7 +1044,45 @@ def _plane_launches(planes):
             planes.probe_planes_multi.launches)
 
 
-def main() -> int:
+def run_phase_plane_kernels(device) -> dict:
+    """Phase 9's timed part: runs phase_plane_kernels and logs its line."""
+    from commet_tpu_torch.core import planes
+    t0 = time.perf_counter()
+    pk = phase_plane_kernels(device, 33)
+    share = {key: f"bound {pk[key]['bound_ms']:.4f} ms, "
+                  f"{100 * pk[key]['bound_ms'] / pk[key]['ms']:.1f}% of bound"
+             for key in ("build", "probe", "multi")}
+    yard = ", ".join(f"{name} {ms:.4f}" for name, ms in
+                     pk["yardsticks"].items())
+    log(f"phase plane kernels: k = {PLANE_K}, {planes.plane_bytes(PLANE_K)} "
+        f"B per plane set; build of one {PLANE_BATCH}-read batch equal word "
+        f"for word to the plain version's, kernel {pk['build']['ms']:.4f} "
+        f"ms, plain {pk['build']['plain_ms']:.4f} ms per batch, "
+        f"{pk['build_windows']} windows, {4 * pk['build_windows']} atomics "
+        f"on {pk['build_sectors']} distinct sectors ({share['build']}); "
+        f"{PLANE_FILL_READS} reads built in {pk['fill_s']:.3f} s, plane A "
+        f"fill {pk['fill']:.5f}; probe of {PLANE_BATCH} reads (a third with "
+        f"a {2 * PLANE_K} bp indexed fragment, all tagged; "
+        f"{pk['tagged_random']} others tagged) equal to the plain version's, "
+        f"kernel {pk['probe']['ms']:.4f} ms, plain "
+        f"{pk['probe']['plain_ms']:.4f} ms, {pk['probe_loads']} plane loads "
+        f"on {pk['probe_sectors']} distinct sectors ({share['probe']}); "
+        f"probe_multi at S = 3 (tags per slot {pk['tagged']}) equal to its "
+        f"plain version's and to three single probes, kernel "
+        f"{pk['multi']['ms']:.4f} ms, plain {pk['multi']['plain_ms']:.4f} "
+        f"ms, 3 single launches {pk['singles_ms']:.4f} ms, "
+        f"{pk['multi_loads']} plane loads on {pk['multi_sectors']} distinct "
+        f"sectors ({share['multi']}); PyTorch at the same addresses (ms): "
+        f"{yard} ({time.perf_counter() - t0:.3f} s)")
+    return pk
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    plane_kernels_only = args == ["--plane-kernels"]
+    if args and not plane_kernels_only:
+        print("usage: chip_smoke.py [--plane-kernels]", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "commet_tpu_torch")):
         print("chip_smoke.py: run it from the repository (commet_tpu_torch "
@@ -798,6 +1118,13 @@ def main() -> int:
     log(f"phase build: {', '.join(n + '.cu' for n in libs)} built with nvcc "
         f"in parallel and loaded, {', '.join(bound)} bound "
         f"({time.perf_counter() - t0:.3f} s)")
+    if plane_kernels_only:
+        pk = run_phase_plane_kernels(device)
+        log(json.dumps({key: pk[key] for key in (
+            "build", "probe", "multi", "singles_ms", "build_windows",
+            "build_sectors", "probe_loads", "probe_sectors", "multi_loads",
+            "multi_sectors", "yardsticks", "tagged")}))
+        return 0
 
     t0 = time.perf_counter()
     kern = phase_kernel(device, rng, INDEX_PAIRS, QUERY_PAIRS)
@@ -875,22 +1202,14 @@ def main() -> int:
             + f" ({time.perf_counter() - t0:.3f} s)")
 
     torch.cuda.empty_cache()
+    pk = run_phase_plane_kernels(device)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    pk = phase_plane_kernels(device, 33)
-    log(f"phase plane kernels: k = {PLANE_K}, {planes.plane_bytes(PLANE_K)} "
-        f"B per plane set; build of one {PLANE_BATCH}-read batch equal word "
-        f"for word to the plain version's, kernel {pk['build']['ms']:.4f} "
-        f"ms, plain {pk['build']['plain_ms']:.4f} ms per batch; "
-        f"{PLANE_FILL_READS} reads built in {pk['fill_s']:.3f} s, plane A "
-        f"fill {pk['fill']:.5f}; probe of {PLANE_BATCH} reads (a third with "
-        f"a {2 * PLANE_K} bp indexed fragment, all tagged; "
-        f"{pk['tagged_random']} others tagged) equal to the plain version's, "
-        f"kernel {pk['probe']['ms']:.4f} ms, plain "
-        f"{pk['probe']['plain_ms']:.4f} ms; probe_multi at S = 3 (tags per "
-        f"slot {pk['tagged']}) equal to its plain version's and to three "
-        f"single probes, kernel {pk['multi']['ms']:.4f} ms, plain "
-        f"{pk['multi']['plain_ms']:.4f} ms, 3 single launches "
-        f"{pk['singles_ms']:.4f} ms ({time.perf_counter() - t0:.3f} s)")
+    cases = phase_plane_edges(device, np.random.default_rng(9))
+    log(f"phase plane edges: build, probe and grouped probe equal to their "
+        f"plain versions at k in {EDGE_K}, t in {EDGE_T}, S in {EDGE_S}, "
+        f"dirty and clean batches of reads shorter than k, 100 and 300 bp "
+        f"({cases} grouped cases) ({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -917,18 +1236,26 @@ def main() -> int:
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:
         raise AssertionError(f"the port imported JAX: {loaded[:5]}")
+    loaded = [m for m in sys.modules
+              if m == "commet_tpu" or m.startswith("commet_tpu.")]
+    if loaded:
+        raise AssertionError(f"the port imported the JAX package: "
+                             f"{loaded[:5]}")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": [
         {"name": "join", "route": "cuda", "source": JOIN_SOURCE,
          "replaces": JOIN_REPLACES, "launches": launches,
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-         "plain_ms": kern["plain_ms"]},
+         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+         **NO_LIBRARY},
         {"name": "join_multi", "route": "cuda", "source": JOIN_SOURCE,
          "replaces": JOIN_MULTI_REPLACES, "launches": launches_multi,
          "max_abs_err": multi["max_abs_err"], "ms": multi["ms"],
-         "plain_ms": multi["plain_ms"]}] + [
+         "plain_ms": multi["plain_ms"], "bound_ms": multi["bound_ms"],
+         **NO_LIBRARY}] + [
         {"name": name, "route": "cuda", "source": PLANES_SOURCE,
-         "replaces": replaces, "launches": launched, **pk[key]}
+         "replaces": replaces, "launches": launched, **pk[key],
+         **NO_LIBRARY}
         for name, replaces, launched, key in zip(
             ("build_planes", "probe_planes", "probe_planes_multi"),
             (BUILD_REPLACES, PROBE_REPLACES, PROBE_MULTI_REPLACES),

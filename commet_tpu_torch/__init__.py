@@ -1,12 +1,15 @@
 """commet_tpu_torch: COMMET's all-vs-all read-set comparison in PyTorch, with
 its device kernels written by hand in CUDA for an NVIDIA H100.
 
-The port of commet_tpu (the JAX package, kept as the reference). This slice
-runs the sorted-join stream path: keygen (``core.keys``), the greedy hit
-count (``core.greedy``), the sorted index, query join and verdict sandwich
-with its exact fallback (``core.stream``, join kernel in
-``core/csrc/join.cu``), the engine (``engine.engine``) and the
-``index_and_search`` and ``commet`` CLIs (``cli``). It reuses commet_tpu's
-JAX-free host modules (read parsing, bit vectors, manifests, the native IO
-library, the read filter and the plots) and never imports JAX.
+The port of commet_tpu (the JAX package, kept as the reference). It runs
+the sorted-join stream path: keygen (``core.keys``), the greedy hit count
+(``core.greedy``), the sorted index, query join and verdict sandwich with
+its exact fallback (``core.stream``, join kernels in ``core/csrc/join.cu``),
+and the dense-plane path (``core.planes``, build and probe kernels in
+``core/csrc/planes.cu``), under the engine (``engine.engine``) and the
+``index_and_search``, ``commet`` and ``filter_reads`` CLIs (``cli``). Its
+host layer is its own: read sets (``io.reads``), bit vectors (``io.bv``),
+manifests (``io.fof``), the native IO library (``native``, built with g++
+at first use), the read filter (``core.filter``) and the plots (``viz``).
+It imports neither JAX nor anything of commet_tpu.
 """

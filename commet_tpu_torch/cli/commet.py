@@ -29,14 +29,14 @@ import argparse
 import os
 import sys
 
-from commet_tpu.cli import filter_reads as filter_cli
-from commet_tpu.io.bv import BitVector
-from commet_tpu.io.fof import (driver_read_bvs, driver_read_files,
-                               driver_set_names)
-from commet_tpu.io.reads import ReadSet
+from commet_tpu_torch.cli import filter_reads as filter_cli
 from commet_tpu_torch.core import planes
 from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine.engine import DEFAULT_BATCH, Engine
+from commet_tpu_torch.io.bv import BitVector
+from commet_tpu_torch.io.fof import (driver_read_bvs, driver_read_files,
+                                     driver_set_names)
+from commet_tpu_torch.io.reads import ReadSet
 
 
 def filter_all_reads(read_matrix, out_dir, l, n, e, m):
@@ -258,7 +258,8 @@ def output_matrices(read_matrix, bv_matrix, names, out_dir, plots=True):
 
     if plots:
         try:
-            from commet_tpu.viz.plots import dendrogram_png, heatmap_png
+            from commet_tpu_torch.viz.plots import (dendrogram_png,
+                                                    heatmap_png)
             dendrogram_png(out_dir + "matrix_normalized.csv",
                            out_dir + "dendrogram_normalized.png")
             for kind in ("plain", "percentage", "normalized"):
@@ -379,7 +380,7 @@ def main(argv=None) -> int:
 
 def entry() -> None:
     """console_scripts entry point (pyproject.toml)."""
-    from commet_tpu.cli.util import guarded
+    from commet_tpu_torch.cli.util import guarded
     sys.exit(guarded(main))
 
 

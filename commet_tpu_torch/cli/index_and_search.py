@@ -13,10 +13,10 @@ from __future__ import annotations
 import os
 import sys
 
-from commet_tpu.io.fof import parse_sets
-from commet_tpu.io.reads import ReadSet
 from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine.engine import Engine
+from commet_tpu_torch.io.fof import parse_sets
+from commet_tpu_torch.io.reads import ReadSet
 
 
 def load_set(name: str, entries) -> ReadSet:
@@ -146,7 +146,7 @@ def main(argv=None) -> int:
 
 def entry() -> None:
     """console_scripts entry point (pyproject.toml)."""
-    from commet_tpu.cli.util import guarded
+    from commet_tpu_torch.cli.util import guarded
     sys.exit(guarded(main))
 
 

@@ -51,9 +51,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from commet_tpu.io.reads import ReadSet
 from commet_tpu_torch.core import keys, planes, stream
 from commet_tpu_torch.device import resolve_device, synchronize
+from commet_tpu_torch.io.reads import ReadSet
+from commet_tpu_torch.native import parser as native
 
 # reads per host batch of the exact fallback
 DEFAULT_BATCH = 4096
@@ -137,10 +138,9 @@ def _pad_length(lmax: int, k: int) -> int:
 
 
 def _native():
-    from commet_tpu.native import parser as native
-    if not native.available():
-        raise RuntimeError("the native IO library (commet_tpu/native) could "
-                           "not be built: run make -C commet_tpu/native")
+    """The native IO module, its library built (a failed build raises with
+    the compiler's message)."""
+    native.load()
     return native
 
 

@@ -10,9 +10,9 @@ import pytest
 
 from commet_tpu.cli import commet as jcommet
 from commet_tpu.cli import index_and_search as jias
-from commet_tpu.io.bv import BitVector
 from commet_tpu_torch.cli import commet as tcommet
 from commet_tpu_torch.cli import index_and_search as tias
+from commet_tpu_torch.io.bv import BitVector
 from torch_helpers import implant, random_seqs, write_fasta
 
 HERE = os.path.dirname(os.path.abspath(__file__))

@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 
 import commet_tpu.engine.engine as jengine
-from commet_tpu.io.bv import BitVector
-from commet_tpu.io.reads import ReadSet
 from commet_tpu_torch.engine import engine as tengine
+from commet_tpu_torch.io.bv import BitVector
+from commet_tpu_torch.io.reads import ReadSet
 from oracle import index_reads, search_read
 from torch_helpers import make_fastas, run_engine
 

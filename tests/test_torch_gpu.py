@@ -14,12 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from commet_tpu.io.reads import ReadSet
-
 from commet_tpu_torch.core import keys
 from commet_tpu_torch.core import planes as tplanes
 from commet_tpu_torch.core import stream as tstream
 from commet_tpu_torch.engine import engine as tengine
+from commet_tpu_torch.io.reads import ReadSet
 from torch_helpers import (encode, implant, index_pairs, long_seq,
                            make_fastas, query_pairs, random_seqs, run_engine)
 
@@ -212,20 +211,28 @@ def _pack(codes, clean):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [15, 21, 33])
+@pytest.mark.parametrize("k", [15, 21, 31, 33])
 def test_plane_kernels_match_plain_on_card(cuda_device, k):
     """commet_build_planes, commet_probe_planes and
     commet_probe_planes_multi against their plain versions on the card:
-    dirty and clean batches, an all-T read, t in {1, 2, 17}, reads holding
-    2k and 18k fragments, S = 3 against three single probes. Exact
+    dirty and clean batches, reads shorter than k, 300 bp reads (up to nine
+    32-window chunks a strand), an all-T read, t in {1, 2, 17}, reads
+    holding 2k and 18k fragments, the grouped probe at S in {1, 3, 32}
+    against its plain version and S = 3 against single probes. Exact
     equality."""
     rng = np.random.default_rng(300 + k)
     idx = [long_seq(rng, 700)] + random_seqs(rng, 3000, 40, 120,
                                              n_frac=0.01)
+    idx += random_seqs(rng, 300, 1, k - 1, n_frac=0.01)
+    idx += random_seqs(rng, 600, 300, 300, n_frac=0.01)
     idx.append(b"T" * 90)
-    dirty = encode(idx[:1500])
-    clean = encode([s for s in idx[1500:] if b"N" not in s.upper()])
+    order = rng.permutation(len(idx) - 1) + 1
+    idx = [idx[0]] + [idx[i] for i in order]
+    dirty = encode(idx[:1900])
+    clean = encode([s for s in idx[1900:] if b"N" not in s.upper()])
     qry = random_seqs(rng, 2000, 20, 150, n_frac=0.01)
+    qry += random_seqs(rng, 200, 1, k - 1, n_frac=0.01)
+    qry += random_seqs(rng, 600, 300, 300, n_frac=0.01)
     implant(rng, idx[1:], qry, k, span=2)
     q = bytearray(long_seq(rng, 700))
     q[100:100 + 18 * k] = idx[0][50:50 + 18 * k]
@@ -244,8 +251,10 @@ def test_plane_kernels_match_plain_on_card(cuda_device, k):
                                        codes.shape[1], k)
         assert torch.equal(got, want)
         sets.append(got)
+        del want
     sets.append(tplanes.alloc_planes(k, cuda_device))
-    slots = tplanes.PlaneSlots(sets)
+    groups = {s: tplanes.PlaneSlots([sets[j % 3] for j in range(s)])
+              for s in (1, 3, 32)}
     dirty = encode(qry)
     inside = np.arange(dirty.shape[1]) < np.array([len(s) for s in qry])[
         :, None]
@@ -255,24 +264,25 @@ def test_plane_kernels_match_plain_on_card(cuda_device, k):
             c2, aux = (x.to(cuda_device) for x in _pack(codes, is_clean))
             length = codes.shape[1]
             wmax = int((codes < 4).sum(axis=1).max()) - k + 1
-            before = (tplanes.probe_planes.launches,
-                      tplanes.probe_planes_multi.launches)
-            one = tplanes.probe_planes(sets[0], c2, aux, is_clean, length, k,
-                                       t, wmax)
-            multi = tplanes.probe_planes_multi(slots, c2, aux, is_clean,
-                                               length, k, t, wmax)
-            torch.cuda.synchronize()
-            assert (tplanes.probe_planes.launches,
-                    tplanes.probe_planes_multi.launches) == (
-                        before[0] + 1, before[1] + 1)
             want = tplanes.probe_planes_multi_plain(
-                slots.planes, c2, aux, is_clean, length, k, t, wmax)
-            assert torch.equal(one, want[0])
-            assert torch.equal(multi, want)
-            assert bool(multi[0, -1])  # the 18k fragment
-            assert not multi[2].any()
+                groups[3].planes, c2, aux, is_clean, length, k, t, wmax)
+            for s, slots in groups.items():
+                before = (tplanes.probe_planes.launches,
+                          tplanes.probe_planes_multi.launches)
+                one = tplanes.probe_planes(sets[0], c2, aux, is_clean,
+                                           length, k, t, wmax)
+                multi = tplanes.probe_planes_multi(slots, c2, aux, is_clean,
+                                                   length, k, t, wmax)
+                torch.cuda.synchronize()
+                assert (tplanes.probe_planes.launches,
+                        tplanes.probe_planes_multi.launches) == (
+                            before[0] + 1, before[1] + 1)
+                assert torch.equal(one, want[0])
+                assert torch.equal(multi, want[[j % 3 for j in range(s)]])
+            assert bool(want[0, -1])  # the 18k fragment
+            assert not want[2].any()
             if t <= 2:  # the reads holding 2k fragments
-                assert int(multi[0].sum()) > 100
+                assert int(want[0].sum()) > 100
 
 
 @pytest.mark.gpu

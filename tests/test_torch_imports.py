@@ -21,8 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter runs the driver on two tiny sets on the CPU and
-    ends with no jax module loaded (this process cannot tell: conftest
-    imports jax)."""
+    ends with no jax module and no module of the JAX package (commet_tpu)
+    loaded (this process cannot tell: conftest imports both)."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -40,6 +40,9 @@ def test_port_never_imports_jax(tmp_path):
         assert rc == 0
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
+        assert not loaded, loaded
+        loaded = sorted(m for m in sys.modules
+                        if m == "commet_tpu" or m.startswith("commet_tpu."))
         assert not loaded, loaded
         print("NO_JAX_OK")
         """)

@@ -67,7 +67,7 @@ def _jax_residents(tmp_path_factory, k):
             for s, seqs in enumerate(idx_sets):
                 write_fasta(tmp / f"i{s}.fa", seqs)
                 res.append(eng.build_resident(
-                    read_set(f"I{s}", str(tmp / f"i{s}.fa"))))
+                    read_set(f"I{s}", str(tmp / f"i{s}.fa"), engine=eng)))
         assert all(r is not None for r in res)
         assert all(len(r.partitions) > 1 for r in res)
         _RESIDENTS[k] = (res, batches)

@@ -15,9 +15,9 @@ import pytest
 import torch
 
 import commet_tpu.engine.engine as jengine
-from commet_tpu.io.bv import BitVector
-from commet_tpu.io.reads import ReadSet
 from commet_tpu_torch.engine import engine as tengine
+from commet_tpu_torch.io.bv import BitVector
+from commet_tpu_torch.io.reads import ReadSet
 from torch_helpers import (file_bytes, force_jax_stream, implant, last_line,
                            long_seq, multi_sets, random_seqs, read_set,
                            write_fasta)
@@ -33,10 +33,11 @@ def _empty_set(path, bv_path):
 
 def _run_multi(eng, idx_paths, qpath, out, **kw):
     os.makedirs(out, exist_ok=True)
-    residents = [eng.build_resident(read_set(f"I{s}", p))
+    residents = [eng.build_resident(read_set(f"I{s}", p, engine=eng))
                  for s, p in enumerate(idx_paths)]
     assert all(r is not None for r in residents)
-    counters = eng.search_multi_set(read_set("Q", qpath), residents,
+    counters = eng.search_multi_set(read_set("Q", qpath, engine=eng),
+                                    residents,
                                     out_dir=out, log_dir=out, **kw)
     return residents, counters
 
@@ -191,9 +192,9 @@ def test_search_multi_set_declines_long_reads(tmp_path, monkeypatch):
     force_jax_stream(monkeypatch)
     for eng in (jengine.Engine(k=k, t=T, batch=64),
                 tengine.Engine(k=k, t=T, device="cpu")):
-        r = eng.build_resident(read_set("I0", idx_paths[0]))
+        r = eng.build_resident(read_set("I0", idx_paths[0], engine=eng))
         assert r is not None
-        assert eng.search_multi_set(read_set("QL", long_fa), [r],
+        assert eng.search_multi_set(read_set("QL", long_fa, engine=eng), [r],
                                     save=False) is None
 
 
@@ -251,8 +252,10 @@ def test_search_set_long_read_matches_jax(tmp_path, monkeypatch):
                       ("torch", teng)):
         out = str(tmp_path / name)
         os.makedirs(out)
-        c = eng.index_and_search(read_set("I", str(tmp_path / "idx.fa")),
-                                 [read_set("Q", str(tmp_path / "qry.fa"))],
+        c = eng.index_and_search(read_set("I", str(tmp_path / "idx.fa"),
+                                          engine=eng),
+                                 [read_set("Q", str(tmp_path / "qry.fa"),
+                                           engine=eng)],
                                  out_dir=out, log_dir=out)["Q"]
         outs[name] = (c["shared"], file_bytes(glob.glob(out + "/*.bv")),
                       last_line(out + "/Q_in_I.log"))

@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 
 import commet_tpu.engine.engine as jengine
-from commet_tpu.io.bv import BitVector
-from commet_tpu.io.reads import ReadSet
 from commet_tpu_torch import state
 from commet_tpu_torch.core import planes
 from commet_tpu_torch.engine import engine as tengine
+from commet_tpu_torch.io.bv import BitVector
+from commet_tpu_torch.io.reads import ReadSet
 from torch_helpers import (file_bytes, last_line, long_seq, make_fastas,
                            multi_sets, read_set, run_engine, write_fasta)
 
@@ -126,7 +126,7 @@ def test_search_multi_set_planes_matches_jax(tmp_path, monkeypatch,
     idx_paths, qpath = multi_sets(tmp_path, 93, k)
     names = [f"I{s}" for s in range(len(idx_paths))]
     jeng = jengine.Engine(k=k, t=T, batch=64, max_kmer=max_kmer)
-    jres = [jeng.build_resident_planes(read_set(n, p))
+    jres = [jeng.build_resident_planes(read_set(n, p, engine=jeng))
             for n, p in zip(names, idx_paths)]
     teng = tengine.Engine(k=k, t=T, device="cpu", max_kmer=max_kmer)
     tres = [teng.build_resident_planes(read_set(n, p))
@@ -143,8 +143,8 @@ def test_search_multi_set_planes_matches_jax(tmp_path, monkeypatch,
                                  ("carried", teng, carried)):
         out = str(tmp_path / name)
         os.makedirs(out)
-        c = eng.search_multi_set_planes(read_set("Q", qpath), residents,
-                                        out_dir=out, log_dir=out)
+        c = eng.search_multi_set_planes(read_set("Q", qpath, engine=eng),
+                                        residents, out_dir=out, log_dir=out)
         results[name] = ({n: [c[n][f] for f in COUNTERS] for n in names},
                          _resident_outputs(out, names, qpath))
     pout = str(tmp_path / "pair")

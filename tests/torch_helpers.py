@@ -1,12 +1,15 @@
 """Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py):
 reads made from a numpy seed, encoded and packed for both packages. Imports
-no JAX (the card-only tests use it on a machine without one)."""
+no JAX and nothing of commet_tpu at import time (the card-only tests use it
+on a machine without them): read sets are the port's, or commet_tpu's for an
+engine of commet_tpu."""
 
 import os
 
 import numpy as np
 
-from commet_tpu.io.reads import CODE_LUT, ReadSet
+from commet_tpu_torch.io import reads as port_reads
+from commet_tpu_torch.io.reads import CODE_LUT
 
 U32 = 0xFFFFFFFF
 LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -107,17 +110,22 @@ def make_fastas(tmp_path, seed, k, n_frac, n_idx=120, n_qry=150,
     return str(tmp_path / "idx.fa"), paths, idx
 
 
+def reads_module(engine=None):
+    """The read-set module for ``engine``: commet_tpu's for an engine of
+    commet_tpu, else the port's."""
+    if type(engine).__module__.startswith("commet_tpu."):
+        from commet_tpu.io import reads
+        return reads
+    return port_reads
+
+
 def run_engine(engine, idx_fa, qry_fas, out):
     """Index set "I" against query sets "Q<i>" through ``engine``; returns
     its counters and the result .bv bytes and .log counter lines."""
     os.makedirs(out, exist_ok=True)
-    rs_i = ReadSet("I")
-    rs_i.add_file(idx_fa)
-    queries = []
-    for qi, path in enumerate(qry_fas):
-        rs = ReadSet(f"Q{qi}")
-        rs.add_file(path)
-        queries.append(rs)
+    rs_i = read_set("I", idx_fa, engine=engine)
+    queries = [read_set(f"Q{qi}", path, engine=engine)
+               for qi, path in enumerate(qry_fas)]
     counters = engine.index_and_search(rs_i, queries, out_dir=out,
                                        log_dir=out)
     blobs = {}
@@ -138,8 +146,9 @@ def force_jax_stream(monkeypatch):
     monkeypatch.setattr(jengine, "_STREAM_SELFCHECK", {})
 
 
-def read_set(name, *paths):
-    rs = ReadSet(name)
+def read_set(name, *paths, engine=None):
+    """A read set of ``paths`` for ``engine`` (reads_module)."""
+    rs = reads_module(engine).ReadSet(name)
     for p in paths:
         rs.add_file(p)
     return rs
