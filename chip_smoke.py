@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --plane-kernels
+    python3 chip_smoke.py --join-kernels
 
-With --plane-kernels it runs phases 1, 2 and 9's timed part only and
-prints their figures as one JSON line (to time two versions of the plane
-kernels: run it in a checkout of each, in turns). Phases, each printing one
-line with its seconds:
+With --plane-kernels it runs phases 1, 2 and 9's timed part only, with
+--join-kernels phases 1, 2, 3 and 5's timed part only, and prints their
+figures as one JSON line. To time two versions of the kernels in turns on
+one card, run it in a checkout of each in one command (order: other, this,
+this, other); --join-kernels needs of the package only join_membership,
+join_membership_multi, JoinSlots, their plain versions and finalize_index,
+so this script also runs on a checkout whose join has another design.
+Phases, each printing one line with its seconds:
   1. card: the GPU's name and power limit (nvidia-smi) and torch's name;
   2. build: every hand-written kernel from commet_tpu_torch/core/csrc/
      (join.cu: commet_join, commet_join_multi; planes.cu:
@@ -15,8 +20,14 @@ line with its seconds:
      one nvcc per source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
-     65,536-read batch of 100 bp x 2 strands x 69 windows); verdicts must be
-     identical; both times by CUDA events;
+     65,536-read batch of 100 bp x 2 strands x 69 windows), sorted and
+     unsorted queries; verdicts must be identical; both times by CUDA
+     events, beside the bound (the bytes it must move at the HBM rate), the
+     share of query tiles whose index range the kernel stages in shared
+     memory (stream.join_tile_ranges), and PyTorch calls on the same inputs
+     (searchsorted of the keya column, a gather at the bound's positions, a
+     copy of the keya column); then the kernel against a 128M-pair index
+     (the density of the refinement's indexes);
   4. golden: the port's index_and_search CLI on tests/data (qa.fq.gz indexed,
      qb.fq searched, k=21, t=2: 3.4% fill, so the plane route) must
      reproduce tests/golden/unit/fq/, the C++ reference's payload and
@@ -27,6 +38,14 @@ line with its seconds:
      the kernel, the plain version and three single-index launches timed by
      CUDA events; then one 65,536-read probe batch against the three
      indexes, its stages timed and its peak device bytes per window key;
+     then the join edges: both join kernels against their plain versions
+     with m around the tile size, index prefixes of 0, 1, 2 and an odd
+     count, columns 8 bytes off a 16-byte boundary, equal-keya runs longer
+     and shorter than the staging capacity across three tiles, queries all
+     below, all above, all equal and unsorted, k = 36's greatest key,
+     leading (0, 0) queries, S in {1, 3, 32, 33} with an empty slot; both
+     branches of the kernel (staged, searched in device memory) must be
+     taken;
   6. main path (sorted indexes): the port's commet driver (default,
      amortized schedule, k=32, t=2) on four 1M-read x 100 bp fasta sets
      made from a numpy seed: sets 2 and 3 carry 64 bp fragments of set 1 in
@@ -164,8 +183,12 @@ def join_bytes(ikas, mis, qa, verdicts) -> int:
     return total
 
 
-def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
-    """Join kernel vs join_membership_plain at the main path's shapes."""
+def make_join_case(device, rng, index_pairs: int, query_pairs: int):
+    """A k = 32 index of ``index_pairs`` random pairs (an eighth of them
+    equal-keya runs with other keyb values, a sixteenth exact duplicates, the
+    all-G/T key) and ``query_pairs`` queries: a third exact index pairs, a
+    third an index keya with another keyb, a third absent keya. Returns the
+    StreamIndex, the queries as made and the queries sorted by keya."""
     import torch
     from commet_tpu_torch.core import stream
     top = 1 << K
@@ -188,7 +211,66 @@ def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
     qa_t = torch.from_numpy(qa).to(device)
     qb_t = torch.from_numpy(qb).to(device)
     qa_s, order = torch.sort(qa_t)  # the stream probe joins sorted keys
-    qb_s = qb_t[order]
+    return sidx, (qa_t, qb_t), (qa_s, qb_t[order])
+
+
+def staged_share(stream, ika, mi: int, qa, geometry=None):
+    """Share of the join's query tiles whose index range the kernel stages
+    in shared memory (stream.join_tiles_staged, at the launch's geometry);
+    None for a package whose join has no tiles."""
+    if not hasattr(stream, "join_tiles_staged"):
+        return None
+    return float(stream.join_tiles_staged(ika, mi, qa, geometry)
+                 .float().mean())
+
+
+def _geometry(stream, mi: int, m: int):
+    """The join launch's (tile, capacity), or None for a package
+    whose join has no tiles."""
+    if not hasattr(stream, "join_launch_geometry"):
+        return None
+    return list(stream.join_launch_geometry(mi, m))
+
+
+def join_yardsticks(sidx, qa_s) -> dict:
+    """PyTorch calls beside the join, on its inputs (none computes its
+    function, the port calls none of them for the join): searchsorted of
+    the sorted queries in the keya column (the keya half of the join), a
+    gather of the keya column at the positions the bound charges, and a
+    plain copy of the keya column (the rate a streamed read reaches)."""
+    import torch
+    ika = sidx.ika[:sidx.mi]
+    pos = torch.searchsorted(ika, qa_s).clamp_(max=sidx.mi - 1)
+    dst = torch.empty_like(ika)
+    copy_ms = cuda_ms(lambda: dst.copy_(ika), 10)
+    return {"searchsorted_ms": cuda_ms(
+                lambda: torch.searchsorted(ika, qa_s), 10),
+            "gather_ms": cuda_ms(lambda: ika[pos], 10),
+            "copy_ms": copy_ms,
+            "copy_gb_s": 2 * ika.numel() * 8 / copy_ms / 1e6}
+
+
+def check_join(stream, sidx, qa, qb, what: str):
+    """The join kernel's verdicts, held equal to the plain version's."""
+    import torch
+    got = stream.join_membership(sidx.ika, sidx.ikb, sidx.mi, qa, qb)
+    want = stream.join_membership_plain(sidx.ika, sidx.ikb, sidx.mi, qa, qb)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"join kernel disagrees with plain version on "
+                             f"{int((got != want).sum())} of {qa.numel()} "
+                             f"({what})")
+    return got, want
+
+
+def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
+    """Join kernel vs join_membership_plain at the main path's shapes, its
+    yardsticks, and the kernel on an index of twice the pairs (the density
+    of the refinement's indexes)."""
+    import torch
+    from commet_tpu_torch.core import stream
+    sidx, (qa_t, qb_t), (qa_s, qb_s) = make_join_case(
+        device, rng, index_pairs, query_pairs)
 
     def kernel():
         return stream.join_membership(sidx.ika, sidx.ikb, sidx.mi, qa_s, qb_s)
@@ -197,12 +279,9 @@ def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
         return stream.join_membership_plain(sidx.ika, sidx.ikb, sidx.mi,
                                             qa_s, qb_s)
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
+    got, want = check_join(stream, sidx, qa_s, qb_s, "sorted queries")
     err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"join kernel disagrees with plain version on "
-                             f"{int((got != want).sum())} of {query_pairs}")
+    check_join(stream, sidx, qa_t, qb_t, "unsorted queries")
     counts = torch.bincount(got.to(torch.int64), minlength=3).tolist()
     if min(counts[:3]) == 0:
         raise AssertionError(f"verdict classes not all exercised: {counts}")
@@ -224,19 +303,40 @@ def phase_kernel(device, rng, index_pairs: int, query_pairs: int):
 
     sort_ms = cuda_ms(sort_unsort, 10)
     bound = bound_ms(join_bytes([sidx.ika], [sidx.mi], qa_s, got))
+    yard = join_yardsticks(sidx, qa_s)
+    share = staged_share(stream, sidx.ika, sidx.mi, qa_s)
+    share_unsorted = staged_share(stream, sidx.ika, sidx.mi, qa_t)
+
+    # the same queries against twice the pairs: 15 index entries a query
+    big, _made, (ba_s, bb_s) = make_join_case(
+        device, np.random.default_rng(128), 2 * index_pairs, query_pairs)
+    bgot, _want = check_join(stream, big, ba_s, bb_s, "the larger index")
+    dense = {"mi": big.mi,
+             "geometry": _geometry(stream, big.mi, ba_s.numel()),
+             "ms": cuda_ms(lambda: stream.join_membership(
+                 big.ika, big.ikb, big.mi, ba_s, bb_s), 10),
+             "bound_ms": bound_ms(join_bytes([big.ika], [big.mi], ba_s,
+                                             bgot)),
+             "staged_share": staged_share(stream, big.ika, big.mi, ba_s)}
+    del big, ba_s, bb_s, bgot, _made, _want
+    torch.cuda.empty_cache()
     return {"counts": counts, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "unsorted_ms": unsorted_ms,
             "sort_unsort_ms": sort_ms, "mi": sidx.mi,
+            "geometry": _geometry(stream, sidx.mi, qa_s.numel()),
+            "staged_share": share, "staged_share_unsorted": share_unsorted,
+            "yardsticks": yard, "larger_index": dense,
             "launches": stream.join_membership.launches,
             "sidx": sidx, "queries": (qa_s, qb_s), "verdicts": got}
 
 
-def phase_multi_kernel(device, rng, kern):
+def phase_multi_kernel(device, rng, kern, probe_batch: bool = True):
     """The grouped join on phase 3's index and two more (a quarter of each
     new index's pairs copied from the first, a quarter with its keya and
     another keyb) against phase 3's sorted queries, vs its plain version
-    and vs three single-index launches; then one probe batch's stages."""
+    and vs three single-index launches; then, with ``probe_batch``, one
+    probe batch's stages."""
     import torch
     from commet_tpu_torch.core import keys, stream
     first = kern["sidx"]
@@ -287,6 +387,15 @@ def phase_multi_kernel(device, rng, kern):
     plain_ms = cuda_ms(plain, 3)
     singles_ms = cuda_ms(singles, 10)
     bound = bound_ms(join_bytes(slots.ikas, slots.mis, qa_s, got))
+    timed = {"counts": counts, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound,
+             "singles_ms": singles_ms,
+             "staged_share": [
+                 staged_share(stream, x.ika, x.mi, qa_s, _geometry(
+                     stream, slots.typical_mi, qa_s.numel()))
+                 if hasattr(slots, "typical_mi") else None for x in idxs]}
+    if not probe_batch:
+        return timed
 
     # one probe batch of the main path's shape against the three indexes:
     # random N-free 100 bp reads
@@ -328,11 +437,217 @@ def phase_multi_kernel(device, rng, kern):
     stream.probe_stream_clean(idxs[0], codes2, lengths, lpad, K, T, wmax)
     torch.cuda.synchronize()
     peak1 = torch.cuda.max_memory_allocated() - base
-    return {"counts": counts, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "singles_ms": singles_ms,
-            "stages": stages, "n_keys": n_keys,
+    return {**timed, "stages": stages, "n_keys": n_keys,
             "bytes_per_key_s3": peak / n_keys,
             "bytes_per_key_s1": peak1 / n_keys}
+
+
+def _misaligned(x):
+    """A copy of the 1-D tensor ``x`` whose storage starts 8 bytes off a
+    16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    out = buf[1 if buf.data_ptr() % 16 == 0 else 2:][:x.numel()]
+    out.copy_(x)
+    if out.data_ptr() % 16 != 8 or not out.is_contiguous():
+        raise AssertionError("could not make a misaligned column")
+    return out
+
+
+def phase_join_edges(device, rng):
+    """The join kernels against their plain versions at edge shapes, exact
+    equality: m around the tile size, tiny and odd index prefixes, columns
+    8 bytes off a 16-byte boundary, an equal-keya run longer than the
+    staging capacity that spans three tiles' ranges (and a shorter one that
+    is staged), CONF and CAND queries inside both, queries all below, all
+    above and all equal, unsorted queries, keys at k = 36's greatest value,
+    a leading block of (0, 0) queries with and without keya = 0 in the
+    index, and the grouped kernel at S in {1, 3, 32, 33} with an empty slot
+    and slots of very different sizes, from one slot a block to all S.
+    Returns (cases, tiles staged, tiles searched in device memory)."""
+    import torch
+    from commet_tpu_torch.core import stream
+    tile, cap = stream.JOIN_TILE, stream.JOIN_CAPACITY
+    top = 1 << 36
+    tally = {"cases": 0, "staged": 0, "global": 0}
+    modes = set()  # launch geometries taken: (stages, full tile)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)
+                                ).to(device)
+
+    def index(a, b):
+        return stream.lexsort_pairs(dev(a), dev(b))
+
+    def count_tiles(ika, mi, qa, geometry=None):
+        geometry = geometry or stream.join_launch_geometry(mi, qa.numel())
+        modes.add((geometry[1] > 0, geometry[0] == tile))
+        staged = stream.join_tiles_staged(ika, mi, qa, geometry)
+        n_staged = int(staged.sum())
+        tally["staged"] += n_staged
+        tally["global"] += staged.numel() - n_staged
+        return n_staged, staged.numel() - n_staged
+
+    def single(what, ika, ikb, mi, qa, qb, classes=None):
+        got = stream.join_membership(ika, ikb, mi, qa, qb)
+        want = stream.join_membership_plain(ika, ikb, mi, qa, qb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"join edges, {what}: kernel differs from "
+                                 f"plain on {int((got != want).sum())} of "
+                                 f"{qa.numel()}")
+        if classes is not None and set(torch.unique(got).tolist()) != classes:
+            raise AssertionError(f"join edges, {what}: verdicts "
+                                 f"{torch.unique(got).tolist()}, expected "
+                                 f"{sorted(classes)}")
+        tally["cases"] += 1
+        return count_tiles(ika, mi, qa)
+
+    def queries(a, b, m, lo=0, hi=top):
+        """m sorted queries: half exact index pairs (their keyb kept or
+        redrawn), half fresh keya in [lo, hi)."""
+        pick = rng.integers(0, len(a), m)
+        qa, qb = a[pick].copy(), b[pick].copy()
+        qb[::3] = rng.integers(0, 8, len(qb[::3]))
+        fresh = rng.random(m) < 0.5
+        qa[fresh] = rng.integers(lo, hi, int(fresh.sum()))
+        order = np.argsort(qa, kind="stable")
+        return qa[order], qb[order]
+
+    all3 = {stream.NONMEM, stream.CAND, stream.CONF}
+    # a dense and a sparse index over the same key range: the tiles of one
+    # are searched in device memory, of the other staged
+    span = 1 << 20
+    made = {}
+    for name, n in (("dense", 60_000), ("sparse", 12_000)):
+        a = rng.integers(0, span, n, dtype=np.int64)
+        b = rng.integers(0, 8, n, dtype=np.int64)
+        made[name] = (a, b, *index(a, b))
+    for name, (a, b, ika, ikb) in made.items():
+        for m in (1, tile - 1, tile, tile + 1, 3 * tile + 5):
+            qa, qb = queries(a, b, m, 0, span)
+            single(f"{name} m={m}", ika, ikb, len(a), dev(qa), dev(qb))
+        qa, qb = queries(a, b, 3 * tile + 5, 0, span)
+        st, gl = single(f"{name} sorted", ika, ikb, len(a), dev(qa), dev(qb),
+                        all3)
+        # (a launch against the dense index stages nothing)
+        if (st, gl) != ((0, 4) if name == "dense" else (4, 0)):
+            raise AssertionError(f"join edges: {name} index staged {st} and "
+                                 f"searched {gl} tiles in device memory")
+        for mi in (0, 1, 2, 4097, len(a) - 1):
+            single(f"{name} mi={mi}", ika, ikb, mi, dev(qa), dev(qb))
+        perm = rng.permutation(len(qa))
+        single(f"{name} unsorted", ika, ikb, len(a), dev(qa[perm]),
+               dev(qb[perm]), all3)
+        # columns 8 bytes off a 16-byte boundary, each alone and all four
+        cols = [ika, ikb, dev(qa), dev(qb)]
+        for which in ((0,), (1,), (2,), (3,), (0, 1, 2, 3)):
+            args = [_misaligned(c) if i in which else c
+                    for i, c in enumerate(cols)]
+            for mi in (len(a), len(a) - 1):
+                single(f"{name} misaligned {which} mi={mi}", args[0], args[1],
+                       mi, args[2], args[3])
+        for what, val in (("below", 0), ("above", top - 1)):
+            # the index shifted up by one so that 0 lies below every key
+            single(f"{name} all {what}", ika + 1, ikb, len(a),
+                   dev(np.full(tile + 3, val)), dev(np.zeros(tile + 3)),
+                   {stream.NONMEM})
+        eq = int(a[0])
+        single(f"{name} all equal", ika, ikb, len(a),
+               dev(np.full(2 * tile + 1, eq)),
+               dev(rng.integers(0, 8, 2 * tile + 1)),
+               {stream.CAND, stream.CONF})
+    # equal-keya runs: one longer than the capacity (searched in device
+    # memory by the three tiles whose ranges it spans), one shorter (staged)
+    for name, run in (("long run", cap + 3000), ("short run", 3000)):
+        other = rng.integers(0, span, 4000, dtype=np.int64)
+        other[other == span // 2] += 1
+        a = np.concatenate([other, np.full(run, span // 2, dtype=np.int64)])
+        b = np.concatenate([rng.integers(0, 8, 4000, dtype=np.int64),
+                            2 * np.arange(run, dtype=np.int64)])
+        ika, ikb = index(a, b)
+        below = np.sort(rng.integers(0, span // 2, tile - 100))
+        above = np.sort(rng.integers(span // 2 + 1, span, tile - 100))
+        qa = np.concatenate([below, np.full(tile + 200, span // 2), above])
+        qb = rng.integers(0, 2 * run, len(qa))  # even: CONF, odd: CAND
+        st, gl = single(name, ika, ikb, len(a), dev(qa), dev(qb), all3)
+        if (st, gl) != ((0, 3) if run > cap else (3, 0)):
+            raise AssertionError(f"join edges: {name} staged {st} and "
+                                 f"searched {gl} tiles in device memory")
+        inside = qa == span // 2
+        got = stream.join_membership(ika, ikb, len(a), dev(qa), dev(qb))
+        want = np.where(qb[inside] % 2 == 0, stream.CONF, stream.CAND)
+        if not np.array_equal(got.cpu().numpy()[inside], want):
+            raise AssertionError(f"join edges: {name}: wrong verdicts "
+                                 "inside the run")
+    # k = 36's greatest key, and the leading (0, 0) queries of invalid
+    # windows with and without keya = 0 in the index
+    a = rng.integers(top - 5000, top, 3000, dtype=np.int64)
+    b = rng.integers(top - 4, top, 3000, dtype=np.int64)
+    a[0], b[0] = top - 1, top - 1
+    ika, ikb = index(a, b)
+    qa, qb = queries(a, b, 2 * tile + 9, top - 5000, top)
+    qa[-1], qb[-1] = top - 1, top - 1
+    got = stream.join_membership(ika, ikb, len(a), dev(qa), dev(qb))
+    if int(got[-1]) != stream.CONF:
+        raise AssertionError("join edges: the greatest k = 36 pair is not "
+                             "CONF")
+    single("k = 36 greatest keys", ika, ikb, len(a), dev(qa), dev(qb), all3)
+    for zeros, first in (((0, 0), stream.CONF), ((0, 5), stream.CAND),
+                         (None, stream.NONMEM)):
+        a = rng.integers(1, span, 5000, dtype=np.int64)
+        b = rng.integers(0, 8, 5000, dtype=np.int64)
+        if zeros is not None:
+            a[:3], b[:3] = zeros[0], zeros[1]
+        ika, ikb = index(a, b)
+        qa, qb = queries(a, b, 2 * tile, 1, span)
+        qa[:tile + 300] = qb[:tile + 300] = 0
+        single(f"leading (0, 0) queries, index zeros {zeros}", ika, ikb,
+               len(a), dev(qa), dev(qb))
+        got = stream.join_membership(ika, ikb, len(a), dev(qa), dev(qb))
+        if set(torch.unique(got[:tile + 300]).tolist()) != {first}:
+            raise AssertionError(f"join edges: (0, 0) queries against index "
+                                 f"zeros {zeros} are not all {first}")
+    # the grouped kernel: slots cycle over a large, an empty, a tiny and a
+    # sparse index; short streams take one slot a block, long ones all S
+    da, db, dika, dikb = made["dense"]
+    _sa, _sb, sika, sikb = made["sparse"]
+    cycle = [(dika, dikb, len(da)), (dika, dikb, 0), (sika, sikb, 7),
+             (sika, sikb, len(_sa)), (_misaligned(dika), dikb, len(da) - 1)]
+    for m in (3 * tile + 5, 200 * tile + 7, 400 * tile + 5):
+        qa, qb = queries(da, db, m, 0, span)
+        qa_t, qb_t = dev(qa), dev(qb)
+        for s in (1, 3, 32, 33):
+            picks = [cycle[j % len(cycle)] for j in range(s)]
+            slots = stream.JoinSlots([p[0] for p in picks],
+                                     [p[1] for p in picks],
+                                     [p[2] for p in picks])
+            got = stream.join_membership_multi(slots, qa_t, qb_t)
+            want = stream.join_membership_multi_plain(
+                slots.ikas, slots.ikbs, slots.mis, qa_t, qb_t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"join edges, S={s} m={m}: grouped kernel differs from "
+                    f"plain on {int((got != want).sum())} of {got.numel()}")
+            if s > 1 and int(got[1].max()) != stream.NONMEM:
+                raise AssertionError("join edges: the empty slot is not all "
+                                     "NONMEM")
+            tally["cases"] += 1
+            geometry = stream.join_launch_geometry(slots.typical_mi, m)
+            for p in picks[:len(cycle)]:
+                count_tiles(p[0], p[2], qa_t, geometry)
+    # a density at which the launch shortens its tile to stage it
+    a = rng.integers(0, span, 38_748, dtype=np.int64)
+    b = rng.integers(0, 8, len(a), dtype=np.int64)
+    ika, ikb = index(a, b)
+    qa, qb = queries(a, b, 4 * tile + 5, 0, span)
+    single("shortened tile", ika, ikb, len(a), dev(qa), dev(qb), all3)
+    want = {(True, True), (True, False), (False, True)}
+    if tally["staged"] == 0 or tally["global"] == 0 or modes != want:
+        raise AssertionError(f"join edges: branches taken {tally}, launch "
+                             f"geometries {sorted(modes)}")
+    return tally["cases"], tally["staged"], tally["global"]
 
 
 def _pack_codes(codes: np.ndarray) -> np.ndarray:
@@ -1077,11 +1392,69 @@ def run_phase_plane_kernels(device) -> dict:
     return pk
 
 
+def _pct(share) -> str:
+    return "not tiled" if share is None else f"{100 * share:.2f}%"
+
+
+def run_phase_kernel(device, rng) -> dict:
+    """Phase 3: runs phase_kernel and logs its line."""
+    t0 = time.perf_counter()
+    kern = phase_kernel(device, rng, INDEX_PAIRS, QUERY_PAIRS)
+    yard, big = kern["yardsticks"], kern["larger_index"]
+    log(f"phase kernel: join on {kern['mi']} index pairs x {QUERY_PAIRS} "
+        f"sorted queries, verdicts identical (NONMEM/CAND/CONF "
+        f"{kern['counts'][:3]}); kernel {kern['ms']:.4f} ms, plain "
+        f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
+        f"({100 * kern['bound_ms'] / kern['ms']:.1f}% of bound), "
+        f"launch (tile, capacity) {kern['geometry']}, "
+        f"{_pct(kern['staged_share'])} of tiles staged; kernel on unsorted "
+        f"queries {kern['unsorted_ms']:.4f} ms "
+        f"({_pct(kern['staged_share_unsorted'])} staged), query sort+unsort "
+        f"{kern['sort_unsort_ms']:.4f} ms; on {big['mi']} index pairs "
+        f"kernel {big['ms']:.4f} ms, bound {big['bound_ms']:.4f} ms, "
+        f"launch {big['geometry']}, {_pct(big['staged_share'])} staged; "
+        f"PyTorch on the same inputs "
+        f"(ms): searchsorted of the keya column {yard['searchsorted_ms']:.4f}"
+        f", gather at the bound's positions {yard['gather_ms']:.4f}, copy of "
+        f"the keya column {yard['copy_ms']:.4f} ({yard['copy_gb_s']:.1f} "
+        f"GB/s read + written); {kern['launches']} launches "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return kern
+
+
+def run_phase_multi_kernel(device, rng, kern, probe_batch: bool = True):
+    """Phase 5: runs phase_multi_kernel, logs its line and frees phase 3's
+    tensors."""
+    t0 = time.perf_counter()
+    multi = phase_multi_kernel(device, rng, kern, probe_batch)
+    del kern["sidx"], kern["queries"], kern["verdicts"]
+    line = (f"phase multi kernel: join_multi on S = 3 x {INDEX_PAIRS} index "
+            f"pairs x {QUERY_PAIRS} sorted queries, verdicts identical to "
+            f"the plain version's (NONMEM/CAND/CONF per slot "
+            f"{multi['counts']}); kernel {multi['ms']:.4f} ms, plain "
+            f"{multi['plain_ms']:.4f} ms, bound {multi['bound_ms']:.4f} ms "
+            f"({100 * multi['bound_ms'] / multi['ms']:.1f}% of bound), 3 "
+            f"single launches {multi['singles_ms']:.4f} ms, tiles staged per "
+            f"slot {[_pct(x) for x in multi['staged_share']]}")
+    if probe_batch:
+        st = multi["stages"]
+        line += (f"; one probe batch of {multi['n_keys']} keys: keygen "
+                 f"{st['keygen']:.4f} ms, sort {st['sort']:.4f} ms, join "
+                 f"{st['join']:.4f} ms, unsort+verdict "
+                 f"{st['unsort_verdict']:.4f} ms, peak "
+                 f"{multi['bytes_per_key_s3']:.1f} B per key at S = 3, "
+                 f"{multi['bytes_per_key_s1']:.1f} at S = 1")
+    log(line + f" ({time.perf_counter() - t0:.3f} s)")
+    return multi
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     plane_kernels_only = args == ["--plane-kernels"]
-    if args and not plane_kernels_only:
-        print("usage: chip_smoke.py [--plane-kernels]", file=sys.stderr)
+    join_kernels_only = args == ["--join-kernels"]
+    if args and not (plane_kernels_only or join_kernels_only):
+        print("usage: chip_smoke.py [--plane-kernels | --join-kernels]",
+              file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "commet_tpu_torch")):
@@ -1126,15 +1499,16 @@ def main(argv=None) -> int:
             "multi_sectors", "yardsticks", "tagged")}))
         return 0
 
-    t0 = time.perf_counter()
-    kern = phase_kernel(device, rng, INDEX_PAIRS, QUERY_PAIRS)
-    log(f"phase kernel: join on {kern['mi']} index pairs x {QUERY_PAIRS} "
-        f"sorted queries, verdicts identical (NONMEM/CAND/CONF "
-        f"{kern['counts'][:3]}); kernel {kern['ms']:.4f} ms, plain "
-        f"{kern['plain_ms']:.4f} ms, kernel on unsorted queries "
-        f"{kern['unsorted_ms']:.4f} ms, query sort+unsort "
-        f"{kern['sort_unsort_ms']:.4f} ms, {kern['launches']} launches "
-        f"({time.perf_counter() - t0:.3f} s)")
+    kern = run_phase_kernel(device, rng)
+    if join_kernels_only:
+        multi = run_phase_multi_kernel(device, rng, kern, probe_batch=False)
+        log(json.dumps({
+            "join": {key: kern[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "unsorted_ms",
+                "sort_unsort_ms", "mi", "staged_share",
+                "staged_share_unsorted", "yardsticks", "larger_index")},
+            "join_multi": multi}))
+        return 0
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1142,20 +1516,21 @@ def main(argv=None) -> int:
         log(f"phase golden: qb.fq_in_QA.bv bytes equal, {counters} "
             f"({time.perf_counter() - t0:.3f} s)")
 
+    multi = run_phase_multi_kernel(device, rng, kern)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    multi = phase_multi_kernel(device, rng, kern)
-    del kern["sidx"], kern["queries"], kern["verdicts"]
-    st = multi["stages"]
-    log(f"phase multi kernel: join_multi on S = 3 x {INDEX_PAIRS} index "
-        f"pairs x {QUERY_PAIRS} sorted queries, verdicts identical to the "
-        f"plain version's (NONMEM/CAND/CONF per slot {multi['counts']}); "
-        f"kernel {multi['ms']:.4f} ms, plain {multi['plain_ms']:.4f} ms, "
-        f"3 single launches {multi['singles_ms']:.4f} ms; one probe batch "
-        f"of {multi['n_keys']} keys: keygen {st['keygen']:.4f} ms, sort "
-        f"{st['sort']:.4f} ms, join {st['join']:.4f} ms, unsort+verdict "
-        f"{st['unsort_verdict']:.4f} ms, peak "
-        f"{multi['bytes_per_key_s3']:.1f} B per key at S = 3, "
-        f"{multi['bytes_per_key_s1']:.1f} at S = 1 "
+    cases, n_staged, n_global = phase_join_edges(device,
+                                                 np.random.default_rng(36))
+    log(f"phase join edges: join and join_multi equal to their plain "
+        f"versions in {cases} cases (m around the {stream.JOIN_TILE}-query "
+        f"tile, index prefixes 0, 1, 2 and odd, columns 8 bytes off a 16-byte "
+        f"boundary, equal-keya runs longer and shorter than the "
+        f"{stream.JOIN_CAPACITY}-entry capacity across three tiles, queries "
+        f"all below, above and equal, unsorted, k = 36's greatest key, "
+        f"leading (0, 0) queries, S in 1, 3, 32, 33 with an empty slot); "
+        f"launches that stage a full tile, a shortened one and nothing; "
+        f"{n_staged} tiles staged in shared memory, {n_global} searched in "
+        f"device memory "
         f"({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
 

@@ -32,12 +32,13 @@ _BATCH = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
 _SIGNATURES = {
     "join": {"commet_join": [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_int64, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_int64,
-                             ctypes.c_void_p, ctypes.c_void_p],
+                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
              "commet_join_multi": [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_int64,
                                    ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int64, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p,
                                    ctypes.c_void_p]},
     "planes": {"commet_build_planes": [ctypes.c_void_p, ctypes.c_int64,
                                        *_BATCH, ctypes.c_int,

@@ -8,7 +8,11 @@ no flag sort key: invalid windows are dropped with a mask. The join runs the
 hand-written CUDA kernel ``csrc/join.cu`` on a CUDA tensor and its plain
 PyTorch version on a CPU tensor. The amortized schedule joins one sorted
 query stream against S indexes (``JoinSlots``) in one grouped launch of the
-same kernel (``join_membership_multi``).
+same kernel (``join_membership_multi``). The kernel is a tile join: a block
+brackets the index range of its tile of consecutive queries and, where that
+range is shorter than the launch's staging capacity, searches it in shared
+memory; ``join_launch_geometry`` chooses the tile and the capacity from the
+launch's density, and ``join_tile_ranges`` is the bracket in PyTorch ops.
 
 Per (window, strand) query the join returns:
   NONMEM (0) keya is absent from the index;
@@ -39,6 +43,15 @@ CONF = 2
 VERDICT_UNTAGGED = 0
 VERDICT_AMBIG = 1
 VERDICT_TAGGED = 2
+
+# the tile join's limits, as csrc/join.cu has them (kTile, kCap): the most
+# queries a block owns and the most index entries it stages; and the step
+# of the tile size (a warp's queries)
+JOIN_TILE = 1024
+JOIN_CAPACITY = 8192
+JOIN_TILE_STEP = 32
+# the least tile worth staging, measured on an H100 (PERF.md)
+JOIN_TILE_MIN = 768
 
 
 # --------------------------------------------------------------------------
@@ -132,6 +145,61 @@ def join_membership_plain(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
     return out
 
 
+def join_launch_geometry(mi: int, m: int):
+    """(tile, capacity) of a join launch of m queries against mi index
+    entries: the consecutive queries a block owns and the index entries it
+    may stage in shared memory. Sorted queries spread over the index, so a
+    tile of t queries spans about t * mi / m entries, give or take a part in
+    sqrt(t): the tile is the largest multiple of ``JOIN_TILE_STEP`` up to
+    ``JOIN_TILE`` whose span fits ``JOIN_CAPACITY`` with 6% to spare. Where
+    less than ``JOIN_TILE_MIN`` queries fit (a dense index: staging would
+    copy many times the entries the queries need, and measured no faster)
+    the launch has capacity 0: it asks for no shared memory, brackets and
+    stages nothing, and searches every query from the root of the index in
+    device memory with the SM's whole L1 behind it. In a launch that
+    stages, a tile that does not fit the capacity (unsorted queries, a long
+    equal-keya run) is searched in device memory inside its bracket."""
+    fit = int(0.94 * JOIN_CAPACITY * m) // max(mi, 1)
+    tile = min(JOIN_TILE, fit // JOIN_TILE_STEP * JOIN_TILE_STEP)
+    if tile >= JOIN_TILE_MIN:
+        return tile, JOIN_CAPACITY
+    return JOIN_TILE, 0
+
+
+def join_tile_ranges(ika: torch.Tensor, mi: int, qa: torch.Tensor,
+                     tile: int) -> torch.Tensor:
+    """[n_tiles, 2] int64 (L, R): the index range the join kernel brackets
+    for each tile of ``tile`` consecutive queries, in PyTorch ops. L is the
+    lower bound in ika[:mi] of the tile's least keya and R the upper bound
+    of its greatest, so every query's lower bound lies in [L, R] and the
+    whole equal-keya run of every present query inside [L, R), whatever the
+    queries' order. A tile whose R - L is below its launch's capacity is
+    staged in shared memory; any other is searched in device memory."""
+    m = qa.shape[0]
+    n_tiles = -(-m // tile)
+    if n_tiles == 0:
+        return qa.new_zeros((0, 2))
+    pad = n_tiles * tile - m
+    big = torch.iinfo(torch.int64).max
+    least = torch.cat([qa, qa.new_full((pad,), big)]).view(n_tiles, tile)
+    most = torch.cat([qa, qa.new_full((pad,), -big - 1)]).view(n_tiles, tile)
+    a = ika[:mi]
+    return torch.stack(
+        [torch.searchsorted(a, least.min(dim=1).values),
+         torch.searchsorted(a, most.max(dim=1).values, right=True)], dim=1)
+
+
+def join_tiles_staged(ika: torch.Tensor, mi: int, qa: torch.Tensor,
+                      geometry=None) -> torch.Tensor:
+    """[n_tiles] bool: which tiles of a join launch the kernel stages in
+    shared memory (the others it searches in device memory), from
+    ``join_tile_ranges`` and the launch's geometry, by default
+    ``join_launch_geometry(mi, len(qa))``."""
+    tile, cap = geometry or join_launch_geometry(mi, qa.shape[0])
+    r = join_tile_ranges(ika, mi, qa, tile)
+    return r[:, 1] - r[:, 0] < cap
+
+
 def _check_column(fn: str, name: str, x: torch.Tensor,
                   device: torch.device) -> None:
     if x.device != device or x.dtype != torch.int64 or x.dim() != 1 \
@@ -154,7 +222,8 @@ def join_membership(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
     [0, mi)). Counterpart of commet_tpu join_membership: a CUDA tensor runs
     the hand kernel csrc/join.cu (counted in ``join_membership.launches``),
     a CPU tensor runs join_membership_plain. The sorted query order the
-    stream keeps is for the kernel's cache locality; any order is right."""
+    stream keeps lets a tile of queries share one short index range, which
+    the kernel stages in shared memory; any order is right."""
     for name, x in (("ika", ika), ("ikb", ikb), ("qa", qa), ("qb", qb)):
         _check_column("join_membership", name, x, qa.device)
     _check_mi("join_membership", ika, ikb, mi)
@@ -176,6 +245,7 @@ def join_membership(ika: torch.Tensor, ikb: torch.Tensor, mi: int,
             ctypes.c_void_p(ika.data_ptr()), ctypes.c_void_p(ikb.data_ptr()),
             ctypes.c_int64(mi), ctypes.c_void_p(qa.data_ptr()),
             ctypes.c_void_p(qb.data_ptr()), ctypes.c_int64(m),
+            *map(ctypes.c_int, join_launch_geometry(mi, m)),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"join kernel launch failed: cudaError {err}")
@@ -191,7 +261,9 @@ class JoinSlots:
     (each int64, lexsorted, valid prefix [0, mi)), and on the card the
     device tables the kernel reads, [3, S] int64 rows of ika addresses, ikb
     addresses and mi values. Built once per group of slots; the object
-    holds the columns, so the addresses stay valid as long as the tables."""
+    holds the columns, so the addresses stay valid as long as the tables.
+    ``typical_mi`` (the upper median of the slots' mi) stands for the group
+    where one launch geometry is chosen for all of its slots."""
 
     def __init__(self, ikas, ikbs, mis):
         ikas, ikbs, mis = list(ikas), list(ikbs), [int(m) for m in mis]
@@ -205,6 +277,7 @@ class JoinSlots:
             _check_column("JoinSlots", f"ikbs[{s}]", b, self.device)
             _check_mi("JoinSlots", a, b, mi)
         self.ikas, self.ikbs, self.mis = ikas, ikbs, mis
+        self.typical_mi = sorted(mis)[len(mis) // 2]
         self.tables = None
         if self.device.type == "cuda":
             self.tables = torch.tensor(
@@ -257,8 +330,9 @@ def join_membership_multi(slots: JoinSlots, qa: torch.Tensor,
             ctypes.c_void_p(tab[1].data_ptr()),
             ctypes.c_void_p(tab[2].data_ptr()), ctypes.c_int64(n_s),
             ctypes.c_void_p(qa.data_ptr()), ctypes.c_void_p(qb.data_ptr()),
-            ctypes.c_int64(m), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(stream))
+            ctypes.c_int64(m),
+            *map(ctypes.c_int, join_launch_geometry(slots.typical_mi, m)),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"multi join kernel launch failed: cudaError {err}")
     join_membership_multi.launches += 1
@@ -273,8 +347,9 @@ join_membership_multi.launches = 0
 # --------------------------------------------------------------------------
 
 def _sorted_queries(wk):
-    """The batch's (read, strand, window) query pairs sorted by keya, for
-    the kernel's cache locality: (sk, skb, perm), invalid windows as
+    """The batch's (read, strand, window) query pairs sorted by keya, so
+    that a tile of them needs one short piece of the index (csrc/join.cu):
+    (sk, skb, perm), invalid windows as
     (0, 0). (The TPU path packs payload << 2 | verdict into uint32 for a
     second sort, which capped a batch at 2^30 keys; the unsort here scatters
     through ``perm`` and has no such limit.)"""

@@ -30,12 +30,50 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _misaligned(x):
+    """A copy of the 1-D tensor x that starts 8 bytes off a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    out = buf[1 if buf.data_ptr() % 16 == 0 else 2:][:x.numel()]
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 8 and out.is_contiguous()
+    return out
+
+
+def _long_run_case(rng, k, device, run):
+    """An index with one equal-keya run of ``run`` entries (even keyb) and
+    three full tiles of sorted queries: below the run, inside it (even keyb
+    CONF, odd CAND) and above it."""
+    tile = tstream.JOIN_TILE
+    top = 1 << k
+    key = top // 2
+    other = rng.integers(0, top, 4000, dtype=np.int64)
+    other[other == key] += 1
+    a = np.concatenate([other, np.full(run, key, dtype=np.int64)])
+    b = np.concatenate([rng.integers(0, 8, 4000, dtype=np.int64),
+                        2 * np.arange(run, dtype=np.int64)])
+    qa = np.concatenate([np.sort(rng.integers(0, key, tile - 100)),
+                         np.full(tile + 200, key),
+                         np.sort(rng.integers(key + 1, top, tile - 100))])
+    qb = rng.integers(0, 2 * run, len(qa))
+    sidx = tstream.finalize_index([torch.from_numpy(a).to(device)],
+                                  [torch.from_numpy(b).to(device)])
+    inside = torch.from_numpy(qa == key).to(device)
+    want = torch.from_numpy(np.where(qb % 2 == 0, tstream.CONF,
+                                     tstream.CAND)).to(device)[inside]
+    return (sidx, torch.from_numpy(qa).to(device),
+            torch.from_numpy(qb).to(device), inside, want.to(torch.int8))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [15, 32, 33])
 def test_join_kernel_matches_plain_on_card(cuda_device, k):
     """The kernel (csrc/join.cu) against join_membership_plain on the card:
     sorted and unsorted queries, the full index, a prefix and an empty one,
-    long equal-keya runs. Verdicts are integers: exact equality."""
+    long equal-keya runs; m around the tile size, columns 8 bytes off a
+    16-byte boundary, an equal-keya run longer than the staging capacity
+    (searched in device memory) and a shorter one (staged). Verdicts are
+    integers: exact equality."""
     rng = np.random.default_rng(80 + k)
     a, b = index_pairs(rng, k, 200_000)
     qa, qb = query_pairs(rng, k, a, b, 300_000)
@@ -52,11 +90,44 @@ def test_join_kernel_matches_plain_on_card(cuda_device, k):
             assert tstream.join_membership.launches == before + 1
             want = tstream.join_membership_plain(sidx.ika, sidx.ikb, mi, x, y)
             assert torch.equal(got, want)
+    tile, cap = tstream.JOIN_TILE, tstream.JOIN_CAPACITY
+    sa, sb = qa_t[order], qb_t[order]
+    for m in (1, tile - 1, tile, tile + 1, 3 * tile + 5):
+        for x, y in ((sa[:m], sb[:m]), (sa[-m:], sb[-m:])):
+            got = tstream.join_membership(sidx.ika, sidx.ikb, sidx.mi, x, y)
+            assert torch.equal(got, tstream.join_membership_plain(
+                sidx.ika, sidx.ikb, sidx.mi, x, y))
+    cols = [sidx.ika, sidx.ikb, sa, sb]
+    want = tstream.join_membership_plain(sidx.ika, sidx.ikb, sidx.mi, sa, sb)
+    for which in ((0,), (1,), (2,), (3,), (0, 1, 2, 3)):
+        ika, ikb, x, y = (_misaligned(c) if i in which else c
+                          for i, c in enumerate(cols))
+        assert torch.equal(
+            tstream.join_membership(ika, ikb, sidx.mi, x, y), want)
+        assert torch.equal(
+            tstream.join_membership(ika, ikb, sidx.mi - 1, x, y),
+            tstream.join_membership_plain(ika, ikb, sidx.mi - 1, x, y))
+    for run in (cap + 3000, 3000):
+        rsidx, x, y, inside, verdicts = _long_run_case(rng, k, cuda_device,
+                                                       run)
+        staged = tstream.join_tiles_staged(rsidx.ika, rsidx.mi, x)
+        assert staged.tolist() == [run < cap] * 3
+        got = tstream.join_membership(rsidx.ika, rsidx.ikb, rsidx.mi, x, y)
+        assert torch.equal(got, tstream.join_membership_plain(
+            rsidx.ika, rsidx.ikb, rsidx.mi, x, y))
+        assert torch.equal(got[inside], verdicts)
 
 
 @pytest.mark.gpu
 def test_join_kernel_rejects_bad_inputs(cuda_device):
     x = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    wide = torch.zeros(16, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):  # a strided column: the kernel copies
+        tstream.join_membership(wide[::2], x, 8, x, x)  # 16 bytes at a time
+    with pytest.raises(ValueError):
+        tstream.join_membership(x, x, 8, wide[::2], x)
+    with pytest.raises(ValueError):
+        tstream.join_membership(x, x, 8, x, x[:4])  # qa and qb differ
     with pytest.raises(ValueError):
         tstream.join_membership(x, x, 9, x, x)  # mi past the index
     with pytest.raises(ValueError):
@@ -87,7 +158,9 @@ def test_join_multi_kernel_matches_plain_on_card(cuda_device):
     """The grouped kernel (commet_join_multi) against
     join_membership_multi_plain: slots of different sizes and mi, an empty
     prefix (mi = 0), the all-G/T key at k = 32, sorted and unsorted
-    queries. Exact equality."""
+    queries; then S = 33 slots (a misaligned column and an index with an
+    equal-keya run longer than the staging capacity among them) at query
+    counts from one slot a block to all 33. Exact equality."""
     k = 32
     rng = np.random.default_rng(90)
     idx = [index_pairs(rng, k, n) for n in (150_000, 40_000, 90_000)]
@@ -123,6 +196,26 @@ def test_join_multi_kernel_matches_plain_on_card(cuda_device):
         for s in (0, 3):
             assert set(torch.unique(got[s]).tolist()) == {
                 tstream.NONMEM, tstream.CAND, tstream.CONF}
+    tile, cap = tstream.JOIN_TILE, tstream.JOIN_CAPACITY
+    rsidx, _x, _y, _inside, _v = _long_run_case(rng, k, cuda_device,
+                                                cap + 3000)
+    cycle = [(cols[0].ika, cols[0].ikb, cols[0].mi),
+             (cols[1].ika, cols[1].ikb, 0),
+             (_misaligned(cols[2].ika), cols[2].ikb, cols[2].mi - 1),
+             (rsidx.ika, rsidx.ikb, rsidx.mi),
+             (cols[1].ika, _misaligned(cols[1].ikb), 7)]
+    picks = [cycle[j % len(cycle)] for j in range(33)]
+    slots = tstream.JoinSlots(*zip(*picks))
+    sa, sb = qa_t[order], qb_t[order]
+    reps = -(-400 * tile // len(qa))
+    long_a, perm = torch.sort(sa.repeat(reps))
+    long_b = sb.repeat(reps)[perm]
+    for m in (1, tile + 1, 3 * tile + 5, len(long_a)):
+        x, y = long_a[:m], long_b[:m]
+        got = tstream.join_membership_multi(slots, x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tstream.join_membership_multi_plain(
+            slots.ikas, slots.ikbs, slots.mis, x, y))
 
 
 @pytest.mark.gpu
