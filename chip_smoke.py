@@ -82,10 +82,32 @@ Phases, each printing one line with its seconds:
      give none); 272M k-mers per set, 3.2% fill, above the gate, so step 0
      runs the plane cohorts (three 4 GiB residents). The driver must say so,
      probe S = 3 slots for set 4, launch every plane kernel, and match the
-     known shared counts.
-Each main path runs with every kernel's launch count set to 0 just before
-it and read just after. At the end no module of JAX or of the JAX package
-(commet_tpu) may be loaded.
+     known shared counts;
+ 11. compare_reads at COMMET's defaults (-k 33 -t 2), in phase 10's
+     directory after its driver: set 1 against set 2 of phase 10, each file
+     with the driver's filter .bv and set name. Pass 1 (set 2 in set 1)
+     must build and probe 4 GiB planes, passes 2 and 3 (the narrowed sets,
+     1.6% fill) must join sorted indexes; build_planes, probe_planes and
+     join must each launch; set1.fa_in_set2.bv and set2.fa_in_set1.bv must
+     equal the driver's byte for byte (every index is one partition, so the
+     third pass's narrowed query set tags what the full set would); each
+     pass's wall, host pack and max_memory_allocated are printed;
+ 12. the job DAG and the host tools, in phase 7's directory right after
+     phase 8: commet --jobs 2 writes the classic run's .bv and matrix files
+     and 15 .job_*.done markers, launching the join, and so does --jobs 4
+     (both walls beside a classic run made just before); a --sge re-run
+     prints the SGE line and rewrites no .log; with the markers of pair
+     (set 1, set 3) deleted a third run recomputes exactly that pair's two
+     logs, the files staying equal; index_and_search -f on sets 1 and 2 equals
+     compare_reads (.bv bytes and counter lines); commet_analysis rewrites
+     the classic run's three CSVs byte for byte; bvop -a/-o/-d/-n with -i
+     on two of its .bv's equals numpy's &, |, & ~ and ~ of the payloads
+     and prints the popcount line; extract_reads of set4.fa with
+     set4.fa_in_set2.bv writes exactly the fasta records of its set bits;
+     generate_random_bv at 25% keeps 20-30% of set 1's reads.
+Each main path (phases 6, 10, 11 and 12's --jobs run) runs with every
+kernel's launch count set to 0 just before it and read just after. At the
+end no module of JAX or of the JAX package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -1346,6 +1368,243 @@ def phase_routes(device: str, tmp: str, fof: str, default_out: str, files):
     return report
 
 
+def phase_compare_reads(device: str, tmp: str):
+    """COMMET's compare_reads at its defaults (-k 33 -t 2) on phase 10's
+    sets 1 and 2 with the driver's filter .bv's and set names: pass 1 must
+    run on the planes, passes 2 and 3 on sorted indexes, and the two result
+    vectors must equal the driver's. Returns per-pass (wall, host pack,
+    peak bytes, route) and the result files."""
+    import torch
+    from commet_tpu_torch.cli import compare_reads
+    from commet_tpu_torch.core import planes, stream
+    from commet_tpu_torch.device import synchronize
+    from commet_tpu_torch.engine.engine import Engine
+    drv = os.path.join(tmp, "commet_out") + "/"
+    fofs = []
+    for i in (1, 2):
+        fofs.append(os.path.join(tmp, f"cr_set{i}.txt"))
+        with open(fofs[-1], "w") as f:
+            f.write(f"set{i}: {os.path.join(tmp, f'set{i}.fa')},"
+                    f"{drv}set{i}.fa.bv\n")
+    real = Engine.index_and_search
+    passes = []
+
+    def timed(self, index_set, query_sets, **kw):
+        builds, joins = (planes.build_planes.launches,
+                         stream.join_membership.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(self, index_set, query_sets, **kw)
+        synchronize(self.device)
+        wall = time.perf_counter() - t0
+        routes = (planes.build_planes.launches - builds,
+                  stream.join_membership.launches - joins)
+        passes.append((f"{query_sets[0].name} in {index_set.name}", wall,
+                        self.last_io_stats.get("host_pack_s", 0.0),
+                        torch.cuda.max_memory_allocated(), routes))
+        return out
+
+    out = os.path.join(tmp, "compare_reads") + "/"
+    Engine.index_and_search = timed
+    try:
+        rc = compare_reads.main(["-i", fofs[0], "-s", fofs[1], "-k",
+                                 str(PLANE_K), "-t", str(T), "-o", out,
+                                 "-l", out, "--device", device])
+    finally:
+        Engine.index_and_search = real
+    if rc != 0:
+        raise AssertionError(f"compare_reads exited {rc}")
+    routes = [launched for *_x, launched in passes]
+    if len(routes) != 3 or routes[0][0] == 0 or routes[0][1] != 0 or any(
+            b != 0 or j == 0 for b, j in routes[1:]):
+        raise AssertionError("pass 1 must build planes and passes 2 and 3 "
+                             f"join sorted indexes: {passes}")
+    names = ["set1.fa_in_set2.bv", "set2.fa_in_set1.bv"]
+    for name in names:
+        with open(out + name, "rb") as f1, open(drv + name, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"compare_reads {name} != the driver's")
+    return passes, names
+
+
+def _same_files(dir_a: str, dir_b: str, names) -> None:
+    for name in names:
+        with open(dir_a + name, "rb") as f1, open(dir_b + name, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{name}: {dir_a} != {dir_b}")
+
+
+def _log_mtimes(out: str) -> dict:
+    return {os.path.basename(p): os.stat(p).st_mtime_ns
+            for p in glob.glob(out + "*.log")}
+
+
+def phase_jobs(device: str, tmp: str, fof: str, classic: str, files):
+    """The job DAG on phase 7's sets: --jobs 2 writes the classic run's
+    files and a marker a job; so does --jobs 4 in a directory of its own,
+    both timed beside a classic run made just before them; a --sge re-run
+    skips every job; with one pair's markers deleted a third run recomputes
+    exactly that pair. Returns the walls (classic, --jobs 2, --jobs 4,
+    --sge, resume), the markers and the join launches of the --jobs 2
+    run."""
+    from commet_tpu_torch.cli import commet
+    from commet_tpu_torch.core import planes, stream
+    out = os.path.join(tmp, "jobs") + "/"
+    walls = []
+
+    def run(*flags, out=out):
+        tee = _Tee(io.StringIO())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = commet.main([fof, "-k", str(K), "-t", str(T), "--no-plots",
+                              "-o", out, "--device", device, *flags])
+        walls.append(time.perf_counter() - t0)
+        if rc != 0:
+            raise AssertionError(f"commet {flags} exited {rc}")
+        return tee.kept.getvalue()
+
+    os.environ["COMMET_TPU_MULTI"] = "0"
+    try:
+        run(out=os.path.join(tmp, "classic_again") + "/")
+    finally:
+        del os.environ["COMMET_TPU_MULTI"]
+    _same_files(classic, os.path.join(tmp, "classic_again") + "/", files)
+    zero_counts(stream, planes)
+    run("--jobs", "2")
+    joins = stream.join_membership.launches
+    if joins == 0:
+        raise AssertionError("commet --jobs 2 launched no join")
+    _same_files(classic, out, files)
+    run("--jobs", "4", out=os.path.join(tmp, "jobs4") + "/")
+    _same_files(classic, os.path.join(tmp, "jobs4") + "/", files)
+    markers = sorted(os.path.basename(p) for p in glob.glob(out + ".job_*"))
+    if len(markers) != 3 + 2 * 6:
+        raise AssertionError(f"--jobs 2 wrote markers {markers}")
+    logs = _log_mtimes(out)
+    if "SGE mode requested: running as an in-process job DAG" not in run(
+            "--sge") or _log_mtimes(out) != logs:
+        raise AssertionError("--sge re-run: no SGE line, or logs rewritten")
+    _same_files(classic, out, files)
+    for name in ("0_in_2", "2_in_0"):
+        os.remove(out + f".job_{name}.done")
+    run("--jobs", "2")
+    after = _log_mtimes(out)
+    changed = {f for f in logs if after[f] != logs[f]}
+    if changed != {"set1_in_set3.log", "set3_in_set1.log"}:
+        raise AssertionError(f"resume recomputed {changed}")
+    _same_files(classic, out, files)
+    return walls, len(markers), joins
+
+
+def phase_tools(device: str, tmp: str, fof: str, classic: str):
+    """The standalone tools on phase 7's sets and its classic run's output:
+    index_and_search -f = compare_reads; commet_analysis rewrites the
+    classic CSVs; bvop = numpy's bit algebra; extract_reads writes the
+    records of the set bits; generate_random_bv keeps about a quarter.
+    Returns the walls of each."""
+    import random
+    from commet_tpu_torch.cli import (bvop, commet_analysis, compare_reads,
+                                      extract_reads, generate_random_bv,
+                                      index_and_search)
+    from commet_tpu_torch.io.bv import BitVector
+    walls = {}
+    set_files = []
+    for i in (1, 2):
+        set_files.append(os.path.join(tmp, f"tools_set{i}.txt"))
+        with open(set_files[-1], "w") as f:
+            f.write(f"set{i}: {os.path.join(tmp, f'set{i}.fa')}\n")
+    outs = {}
+    for name, cli, extra in (("index_and_search -f", index_and_search,
+                              ["-f"]),
+                             ("compare_reads", compare_reads, [])):
+        out = os.path.join(tmp, name.split()[0]) + "/"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["-i", set_files[0], "-s", set_files[1], "-k",
+                           str(K), "-t", str(T), "-o", out, "-l", out,
+                           "--device", device] + extra)
+        walls[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}")
+        outs[name] = out
+    pair = ["set1.fa_in_set2.bv", "set2.fa_in_set1.bv"]
+    _same_files(outs["compare_reads"], outs["index_and_search -f"], pair)
+    for log in ("set1_in_set2.log", "set2_in_set1.log"):
+        lines = []
+        for o in outs.values():
+            with open(o + log) as f:
+                lines.append(f.read().splitlines()[-1])
+        if lines[0] != lines[1]:
+            raise AssertionError(f"{log}: counters {lines}")
+
+    csvs = [f"matrix_{kind}.csv" for kind in
+            ("plain", "percentage", "normalized")]
+    before = {}
+    for name in csvs:
+        with open(classic + name, "rb") as f:
+            before[name] = f.read()
+        os.remove(classic + name)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = commet_analysis.main([fof, "-o", classic, "--no-plots"])
+    walls["commet_analysis"] = time.perf_counter() - t0
+    for name in csvs:
+        if rc != 0 or not os.path.exists(classic + name):
+            raise AssertionError(f"commet_analysis exited {rc}")
+        with open(classic + name, "rb") as f:
+            if f.read() != before[name]:
+                raise AssertionError(f"commet_analysis {name} differs")
+
+    a_path, b_path = (classic + "set1.fa_in_set2.bv",
+                      classic + "set1.fa_in_set3.bv")
+    a, b = BitVector.read(a_path), BitVector.read(b_path)
+    t0 = time.perf_counter()
+    for flag, want in (("-a", a.data & b.data), ("-o", a.data | b.data),
+                       ("-d", a.data & ~b.data), ("-n", ~a.data)):
+        res = os.path.join(tmp, f"bvop{flag}.bv")
+        argv = [a_path, flag] + ([] if flag == "-n" else [b_path])
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = bvop.main(argv + ["-i", "-p", res])
+        got = BitVector.read(res)
+        if rc != 0 or got.data.tobytes() != want.tobytes():
+            raise AssertionError(f"bvop {flag} differs from numpy")
+        info = f"{a.comment}\nReads:\n  {got.nb_one()} / {a.size} reads " \
+               "selected\n"
+        if said.getvalue() != info or got.nb_one() != min(
+                int(np.unpackbits(want).sum()), a.size):
+            raise AssertionError(f"bvop {flag} -i: {said.getvalue()!r}")
+    walls["bvop"] = time.perf_counter() - t0
+
+    src, sel = os.path.join(tmp, "set4.fa"), classic + "set4.fa_in_set2.bv"
+    out = os.path.join(tmp, "extracted.fa")
+    t0 = time.perf_counter()
+    if extract_reads.main([src, sel, "-o", out]) != 0:
+        raise AssertionError("extract_reads failed")
+    walls["extract_reads"] = time.perf_counter() - t0
+    keep = np.nonzero(BitVector.read(sel).as_bool_array())[0]
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")
+    want = b"".join(lines[2 * i] + b"\n" + lines[2 * i + 1] + b"\n"
+                    for i in keep)
+    with open(out, "rb") as f:
+        if f.read() != want or not len(keep):
+            raise AssertionError("extract_reads records differ")
+
+    random.seed(11)
+    res = os.path.join(tmp, "random.bv")
+    t0 = time.perf_counter()
+    if generate_random_bv.main([os.path.join(tmp, "set1.fa"), "25",
+                                res]) != 0:
+        raise AssertionError("generate_random_bv failed")
+    walls["generate_random_bv"] = time.perf_counter() - t0
+    bv = BitVector.read(res)
+    share = bv.nb_one() / bv.size
+    if bv.size != SCHED_READS or not 0.2 < share < 0.3:
+        raise AssertionError(f"generate_random_bv kept {share}")
+    return walls, len(keep), share
+
+
 def zero_counts(stream, planes):
     """Every kernel wrapper's launch count set to 0."""
     for fn in (stream.join_membership, stream.join_membership_multi,
@@ -1575,6 +1834,27 @@ def main(argv=None) -> int:
                         f"probe_multi launches {launched})"
                         for name, (wall, line, launched) in routes.items())
             + f" ({time.perf_counter() - t0:.3f} s)")
+        t0 = time.perf_counter()
+        classic = os.path.join(tmp, "classic") + "/"
+        job_walls, n_markers, job_joins = phase_jobs("cuda", tmp, fof,
+                                                     classic, files)
+        tool_walls, n_extracted, share = phase_tools("cuda", tmp, fof,
+                                                     classic)
+        log(f"phase jobs and tools: commet --jobs 2 and --jobs 4 wrote the "
+            f"classic run's {len(files)} files, --jobs 2 {n_markers} markers "
+            f"(join launches {job_joins}); a --sge re-run skipped every job; "
+            f"with the markers of pair (set1, set3) deleted a third run "
+            f"recomputed exactly its two logs; walls classic "
+            f"{job_walls[0]:.3f} s (phase 7 {walls['classic']:.3f} s), "
+            f"--jobs 2 {job_walls[1]:.3f} s, --jobs 4 {job_walls[2]:.3f} s, "
+            f"--sge {job_walls[3]:.3f} s, resume {job_walls[4]:.3f} s; "
+            f"index_and_search -f = compare_reads, "
+            f"commet_analysis rewrote the classic CSVs, bvop -a/-o/-d/-n/-i "
+            f"= numpy, extract_reads wrote the {n_extracted} records of "
+            f"set4.fa_in_set2.bv, generate_random_bv at 25% kept "
+            f"{100 * share:.2f}%; walls "
+            + ", ".join(f"{n} {w:.3f} s" for n, w in tool_walls.items())
+            + f" ({time.perf_counter() - t0:.3f} s)")
 
     torch.cuda.empty_cache()
     pk = run_phase_plane_kernels(device)
@@ -1607,6 +1887,25 @@ def main(argv=None) -> int:
             f"launches {stream.join_membership.launches}/"
             f"{stream.join_membership_multi.launches}, max_memory_allocated "
             f"{peak} B ({time.perf_counter() - t0:.3f} s)")
+        torch.cuda.empty_cache()
+        zero_counts(stream, planes)
+        t0 = time.perf_counter()
+        passes, same = phase_compare_reads("cuda", tmp)
+        cr_counts = (planes.build_planes.launches,
+                     planes.probe_planes.launches,
+                     stream.join_membership.launches)
+        if min(cr_counts) == 0:
+            raise AssertionError(f"compare_reads launched build_planes/"
+                                 f"probe_planes/join {cr_counts} times")
+        for what, wall, pack, peak, (builds, joins) in passes:
+            log(f"  compare_reads pass {what}: {wall:.3f} s, host pack "
+                f"{pack:.3f} s of the last search, max_memory_allocated "
+                f"{peak} B, build_planes/join launches {builds}/{joins}")
+        log(f"phase compare_reads: -k {PLANE_K} -t {T} on sets 1 and 2 of 4 "
+            f"x {PLANE_SET_READS} reads with the driver's filters, pass 1 on "
+            f"the planes, passes 2 and 3 on sorted indexes; "
+            f"{' and '.join(same)} equal to the driver's; build_planes/probe_planes/join launches "
+            f"{cr_counts} ({time.perf_counter() - t0:.3f} s)")
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:

@@ -6,8 +6,10 @@ the sorted-join stream path: keygen (``core.keys``), the greedy hit count
 (``core.greedy``), the sorted index, query join and verdict sandwich with
 its exact fallback (``core.stream``, join kernels in ``core/csrc/join.cu``),
 and the dense-plane path (``core.planes``, build and probe kernels in
-``core/csrc/planes.cu``), under the engine (``engine.engine``) and the
-``index_and_search``, ``commet`` and ``filter_reads`` CLIs (``cli``). Its
+``core/csrc/planes.cu``), under the engine (``engine.engine``), the job
+DAG of ``commet --jobs`` (``engine.scheduler``) and the CLIs (``cli``:
+``commet``, ``index_and_search``, ``compare_reads``, ``commet_analysis``,
+``filter_reads``, ``bvop``, ``extract_reads``, ``generate_random_bv``). Its
 host layer is its own: read sets (``io.reads``), bit vectors (``io.bv``),
 manifests (``io.fof``), the native IO library (``native``, built with g++
 at first use), the read filter (``core.filter``) and the plots (``viz``).

@@ -18,9 +18,13 @@ the index sets stay resident on the device, as sorted indexes below the fill
 gate and in plane cohorts above it (``run_plane_cohorts``), and each query
 set is searched once against all of them. ``COMMET_TPU_MULTI=0`` selects the
 classic rounds, which also run, with a printed line, where neither amortized
-form can serve the sets. The outputs are the same either way. State flows
-through .bv files between steps like the reference's subprocess pipeline.
-``--jobs``/``--sge`` and multi-host runs are not ported yet (ROADMAP).
+form can serve the sets. ``--jobs N`` (and ``--sge``, which means
+``--jobs 2``) runs the classic rounds as a job DAG on N host workers, set
+loads beside the search that holds the card, and resumes from its
+``.job_<name>.done`` markers (``run_scheduled``). The
+outputs are the same either way. State flows through .bv files between
+steps like the reference's subprocess pipeline. ``--devices`` other than 1
+and multi-host runs are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from commet_tpu_torch.cli import filter_reads as filter_cli
 from commet_tpu_torch.core import planes
 from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine.engine import DEFAULT_BATCH, Engine
+from commet_tpu_torch.engine.scheduler import JobGraph
 from commet_tpu_torch.io.bv import BitVector
 from commet_tpu_torch.io.fof import (driver_read_bvs, driver_read_files,
                                      driver_set_names)
@@ -61,38 +66,110 @@ def _load_set(name, files, bvs) -> ReadSet:
     return rs
 
 
+def result_bvs(read_matrix, names, out_dir, i, j):
+    """The paths of set i's <file>_in_<set j>.bv result vectors."""
+    return [out_dir + os.path.basename(f) + "_in_"
+            + os.path.basename(names[j]) + ".bv" for f in read_matrix[i]]
+
+
+def step0_sets(read_matrix, bv_matrix, names, ref_id):
+    """Step 0 of round ref_id (Commet.py:193-205): set ref_id to index and
+    every later set to search in it."""
+    index_set = _load_set(names[ref_id], read_matrix[ref_id],
+                          bv_matrix[ref_id])
+    queries = [_load_set(names[j], read_matrix[j], bv_matrix[j])
+               for j in range(ref_id + 1, len(names))]
+    return index_set, queries
+
+
+def refine_sets(read_matrix, bv_matrix, names, out_dir, i, j):
+    """Set i narrowed by its _in_<set j> results to index, set j to search
+    in it: step a of pair (ref, X) is refine_sets(X, ref), step b
+    refine_sets(ref, X) (Commet.py:211-238)."""
+    narrow = _load_set(names[i], read_matrix[i],
+                       result_bvs(read_matrix, names, out_dir, i, j))
+    full = _load_set(names[j], read_matrix[j], bv_matrix[j])
+    return narrow, [full]
+
+
 def refine_pair(read_matrix, bv_matrix, names, out_dir, ref_id, j, eng):
     """Steps a/b of the 3-pass refinement for pair (ref_id, j)
     (Commet.py:211-238); needs the pair's step-0 result bvs on disk."""
     # STEP a: Si in (X in Si) - index X narrowed by its _in_Si bvs
-    x_bvs = [out_dir + os.path.basename(f) + "_in_" +
-             os.path.basename(names[ref_id]) + ".bv"
-             for f in read_matrix[j]]
-    x_narrow = _load_set(names[j], read_matrix[j], x_bvs)
-    si = _load_set(names[ref_id], read_matrix[ref_id], bv_matrix[ref_id])
     print(f" {names[ref_id]} in ({names[j]} in {names[ref_id]})")
-    eng.index_and_search(x_narrow, [si], out_dir=out_dir, log_dir=out_dir)
-
+    eng.index_and_search(*refine_sets(read_matrix, bv_matrix, names,
+                                      out_dir, j, ref_id),
+                         out_dir=out_dir, log_dir=out_dir)
     # STEP b: X in (Si in (X in Si)) - index Si narrowed by its _in_X bvs
-    si_bvs = [out_dir + os.path.basename(f) + "_in_" +
-              os.path.basename(names[j]) + ".bv"
-              for f in read_matrix[ref_id]]
-    si_narrow = _load_set(names[ref_id], read_matrix[ref_id], si_bvs)
-    x_full = _load_set(names[j], read_matrix[j], bv_matrix[j])
     print(f" {names[j]} in ({names[ref_id]} in ({names[j]} in {names[ref_id]}))")
-    eng.index_and_search(si_narrow, [x_full], out_dir=out_dir, log_dir=out_dir)
+    eng.index_and_search(*refine_sets(read_matrix, bv_matrix, names,
+                                      out_dir, ref_id, j),
+                         out_dir=out_dir, log_dir=out_dir)
 
 
 def compare_all_against(read_matrix, bv_matrix, names, out_dir, ref_id, eng):
     """One reference round (Commet.py:186-240): index Si and search every
     later set, then refine each pair; results chain through .bv files."""
-    index_set = _load_set(names[ref_id], read_matrix[ref_id], bv_matrix[ref_id])
-    queries = [_load_set(names[j], read_matrix[j], bv_matrix[j])
-               for j in range(ref_id + 1, len(names))]
     print(f"All in {names[ref_id]}")
-    eng.index_and_search(index_set, queries, out_dir=out_dir, log_dir=out_dir)
+    eng.index_and_search(*step0_sets(read_matrix, bv_matrix, names, ref_id),
+                         out_dir=out_dir, log_dir=out_dir)
     for j in range(ref_id + 1, len(names)):
         refine_pair(read_matrix, bv_matrix, names, out_dir, ref_id, j, eng)
+
+
+def run_scheduled(read_matrix, bv_matrix, names, out_dir, end, eng, jobs):
+    """The classic rounds as a dependency DAG of jobs on ``jobs`` host
+    workers (the reference's SGE hold_jid chains, Commet.py:186-240, run
+    in-process): all_in_<i>, then per later set j <i>_in_<j> (step a), then
+    <j>_in_<i> (step b). A job loads its sets on its worker and holds the
+    device lock only for its search, so up to ``jobs`` - 1 jobs load while
+    one searches.
+
+    Resume: each completed job writes a ``.job_<name>.done`` marker next to
+    its outputs after they are on disk; on a re-run, a job whose marker and
+    outputs all exist is skipped. Delete a pair's outputs (or markers) to
+    recompute just that pair. Job names, outputs and markers are
+    commet_tpu's (_run_scheduled), so either package resumes the other's
+    output directory."""
+    g = JobGraph(workers=jobs)
+
+    def add(name, load, outputs, deps=()):
+        marker = os.path.join(out_dir, f".job_{name}.done")
+
+        def run():
+            sets = load()
+            with g.device_lock:
+                eng.index_and_search(*sets, out_dir=out_dir, log_dir=out_dir)
+            with open(marker, "w") as f:
+                f.write("done\n")
+
+        def done():
+            return (os.path.exists(marker)
+                    and all(os.path.exists(p) for p in outputs))
+        return g.add(name, run, deps=deps, done_check=done)
+
+    def log(i, j):
+        return out_dir + f"{names[i]}_in_{names[j]}.log"
+
+    args = (read_matrix, bv_matrix, names)
+    for i in range(end):
+        later = range(i + 1, len(names))
+        root = add(f"all_in_{i}", lambda i=i: step0_sets(*args, i),
+                   [p for j in later
+                    for p in result_bvs(read_matrix, names, out_dir, j, i)]
+                   + [log(j, i) for j in later])
+        for j in later:
+            # pairs fan out independently after step 0, like the
+            # reference's per-pair hold_jid chains (Commet.py:224,236)
+            a = add(f"{i}_in_{j}",
+                    lambda i=i, j=j: refine_sets(*args, out_dir, j, i),
+                    result_bvs(read_matrix, names, out_dir, i, j)
+                    + [log(i, j)], deps=[root])
+            add(f"{j}_in_{i}",
+                lambda i=i, j=j: refine_sets(*args, out_dir, i, j),
+                result_bvs(read_matrix, names, out_dir, j, i) + [log(j, i)],
+                deps=[a])
+    g.run()
 
 
 def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
@@ -314,7 +391,9 @@ def main(argv=None) -> int:
                     "of read sets (PyTorch / CUDA)")
     parser.add_argument("input_file", type=str)
     parser.add_argument("--sge", action="store_true",
-                        help="not yet ported (ROADMAP)")
+                        help="compatibility alias for --jobs 2 (the "
+                             "reference's SGE cluster mode becomes an "
+                             "in-process dependency-scheduled job DAG)")
     parser.add_argument("--one_vs_all", action="store_true",
                         help="compare set 1 with each other set only")
     parser.add_argument("--no-plots", dest="plots", action="store_false")
@@ -332,14 +411,22 @@ def main(argv=None) -> int:
                              "unused (no external binaries)")
     parser.add_argument("--batch", type=int, default=DEFAULT_BATCH,
                         help="reads per batch of the exact fallback")
+    parser.add_argument("--devices", type=str, default=None,
+                        help="number of cards to use; only 1 is ported")
     parser.add_argument("--jobs", type=int, default=1,
-                        help="not yet ported (ROADMAP); must be 1")
+                        help="run the pipeline as a dependency-scheduled job "
+                             "DAG with N host workers (the reference's --sge "
+                             "equivalent; jobs load their sets in parallel, "
+                             "their searches serialize)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
     args = parser.parse_args(argv)
-    for flag, asked in (("--sge", args.sge), ("--jobs", args.jobs != 1)):
-        if asked:
-            parser.error(f"{flag} is not yet ported (ROADMAP)")
+    if args.sge and args.jobs == 1:
+        print("SGE mode requested: running as an in-process job DAG")
+        args.jobs = 2
+    if args.devices not in (None, "1"):
+        parser.error(f"--devices is not yet ported (ROADMAP): {args.devices} "
+                     "asked, only 1 runs")
     device = resolve_device(args.device)
 
     out_dir = args.directory
@@ -365,8 +452,11 @@ def main(argv=None) -> int:
 
     eng = Engine(k=k, t=t, device=device, batch=args.batch)
     end = 1 if args.one_vs_all else len(read_matrix) - 1
-    if not run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end,
-                                eng):
+    if args.jobs > 1:
+        run_scheduled(read_matrix, bv_matrix, names, out_dir, end, eng,
+                      args.jobs)
+    elif not run_amortized_rounds(read_matrix, bv_matrix, names, out_dir,
+                                  end, eng):
         for ref_id in range(end):
             compare_all_against(read_matrix, bv_matrix, names, out_dir,
                                 ref_id, eng)

@@ -1,7 +1,9 @@
 """Host-side read-file layer of the port: fasta/fastq (+gzip) read sets,
-2-bit encoded by the port's native library (native/parser.py). The port's
-copy of commet_tpu/io/reads.py, less its pure-Python parse and the record
-text that only extract_reads-style tools need.
+2-bit encoded by the port's native library (native/parser.py), and the full
+record text that extract_reads needs, parsed in Python when first read. The
+port's copy of commet_tpu/io/reads.py, less its pure-Python encoder: the
+native library is the only parse of the codes, and a build that fails
+raises.
 
 Parsing semantics are byte-compatible with the reference readers:
   - format sniffing by the first decompressed byte, '>' = fasta, '@' = fastq
@@ -21,6 +23,7 @@ code 4 = invalid, which resets the rolling hash window exactly like
 
 from __future__ import annotations
 
+import gzip
 import os
 from typing import List, Optional
 
@@ -35,13 +38,63 @@ for _c, _v in ((b"Aa", 0), (b"Cc", 1), (b"Gg", 2), (b"Tt", 3)):
     CODE_LUT[_c[0]] = _v
     CODE_LUT[_c[1]] = _v
 
+def parse_fasta(raw: bytes) -> List[bytes]:
+    """Each read's full record text: the header and the non-empty sequence
+    lines, '\n'-joined and '\n'-terminated (CR bytes kept)."""
+    recs: List[bytes] = []
+    cur: Optional[list] = None
+    for ln in raw.split(b"\n"):
+        if ln[:1] == b">":
+            if cur is not None:
+                recs.append(b"\n".join(cur) + b"\n")
+            cur = [ln]
+        elif cur is not None and ln:
+            cur.append(ln)
+    if cur is not None:
+        recs.append(b"\n".join(cur) + b"\n")
+    return recs
+
+
+def parse_fastq(raw: bytes) -> List[bytes]:
+    """Each read's four-line record, by the reference's walk: read count =
+    non-empty lines // 4 (fastq_file.h:60-67), the sequence the line right
+    after each empty-line-skipped header (fastq_file.h:154-173)."""
+    lines = raw.split(b"\n")
+    nlines = len(lines)
+    nb_reads = sum(1 for ln in lines if ln) // 4
+    recs: List[bytes] = []
+    i = 0
+
+    def skip_empty(j):
+        while j < nlines and not lines[j]:
+            j += 1
+        return j
+
+    def line(j):
+        return lines[j] if j < nlines else b""
+
+    for _ in range(nb_reads):
+        i = skip_empty(i)
+        if i >= nlines:
+            break
+        header, seq = lines[i], line(i + 1)
+        i = skip_empty(i + 2)
+        plus = line(i)
+        i = skip_empty(i + 1)
+        qual = line(i)
+        i += 1
+        recs.append(b"\n".join((header, seq, plus, qual)) + b"\n")
+    return recs
+
 
 class ReadFile:
     """One read file: encoded reads + the per-read *filter* bit vector.
 
     Mirrors the reference ReadFile (include/read_file.h:35): ``filter_bv``
     selects which reads exist for downstream consumers; the result vector
-    (owned by ReadSet) accumulates search tags.
+    (owned by ReadSet) accumulates search tags. The native library parses
+    and encodes the file; the record text is parsed in Python when
+    ``records`` is first read.
     """
 
     def __init__(self, path: str, bv_path: Optional[str] = None):
@@ -59,6 +112,7 @@ class ReadFile:
         self._lengths = d["lengths"]
         self._class_counts = d["class_counts"]
         self.nb_reads = d["n_reads"]
+        self._records: Optional[List[bytes]] = None
 
         if bv_path:
             bv = BitVector.read(bv_path)
@@ -69,6 +123,17 @@ class ReadFile:
         else:
             bv = BitVector(self.nb_reads, fill=True)
         self.filter_bv = bv
+
+    @property
+    def records(self) -> List[bytes]:
+        """Each read's full record text, in file order."""
+        if self._records is None:
+            with (gzip.open if self.was_gzipped else open)(self.path,
+                                                           "rb") as f:
+                raw = f.read()
+            self._records = (parse_fasta(raw) if self.fmt == "fasta"
+                             else parse_fastq(raw))
+        return self._records
 
     def encoded(self):
         """(flat_codes uint8, offsets int64 [N+1], lengths int32 [N])."""

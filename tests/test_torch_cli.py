@@ -114,9 +114,10 @@ def test_commet_driver_matches_jax(tmp_path):
     assert all(int(v) > 0 for v in plain[1].split(";")[1:])
 
 
-@pytest.mark.parametrize("flags", [["--sge"], ["--jobs", "2"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"], ["--devices", "all"]])
 def test_commet_unported_options_fail(tmp_path, capsys, flags):
-    """Options outside this slice exit non-zero and name the ROADMAP."""
+    """More than one card is not ported: --devices other than 1 exits
+    non-zero and names the ROADMAP."""
     with pytest.raises(SystemExit) as exc:
         tcommet.main([str(tmp_path / "sets.txt"), "--device", "cpu"] + flags)
     assert exc.value.code != 0

@@ -97,9 +97,9 @@ def _write_reads(path, seqs, fmt, gz):
 def test_read_set_matches(tmp_path, fmt, gz):
     """A read set of two files (fasta or fastq, plain or gzipped; reads
     with Ns, lower case, empty and short reads; a filter .bv on one file):
-    the port's parse equals commet_tpu's native and pure-Python parses,
-    and its eligible rows, tags, result .bv bytes and packed batches equal
-    commet_tpu's."""
+    the port's parse and record text equal commet_tpu's native and
+    pure-Python parses, and its eligible rows, tags, result .bv bytes and
+    packed batches equal commet_tpu's."""
     rng = np.random.default_rng(7 if gz else 8)
     paths = []
     for f in range(2):
@@ -124,6 +124,8 @@ def test_read_set_matches(tmp_path, fmt, gz):
                 np.testing.assert_array_equal(got, want)
             for got, want in zip(port.class_counts(), ref.class_counts()):
                 np.testing.assert_array_equal(got, want)
+            assert port.records == ref.records
+            assert port.filter_bv.nb_one() == ref.nb_valid_reads()
     rows = sets["torch"].eligible()
     np.testing.assert_array_equal(rows, sets["jax"].eligible())
     pick = rows[rng.random(len(rows)) < 0.3]

@@ -1,8 +1,9 @@
 """The port stands alone: no file of commet_tpu_torch, and not
 chip_smoke.py, imports the JAX package (commet_tpu), checked on the source
 by an AST scan; a copy of commet_tpu_torch alone, with no commet_tpu beside it,
-runs the driver and filter_reads on the CPU and builds its native library
-inside itself; and the card tests import the port's read sets."""
+runs the driver, filter_reads, compare_reads and bvop on the CPU and builds
+its native library inside itself; and the card tests import the port's read
+sets."""
 
 import ast
 import glob
@@ -85,24 +86,33 @@ def test_card_tests_import_the_port_reads():
 
 def test_port_copy_runs_alone(tmp_path):
     """commet_tpu_torch copied alone into an empty directory (no build
-    products, no commet_tpu beside it): filter_reads and the driver run
-    on the CPU in a fresh interpreter, no commet_tpu module is loaded, and
-    the native library is built inside the copy's _build/."""
+    products, no commet_tpu beside it): filter_reads, the driver,
+    compare_reads and bvop run on the CPU in a fresh interpreter, no
+    commet_tpu module is loaded, and the native library is built inside the
+    copy's _build/."""
     shutil.copytree(os.path.join(REPO, "commet_tpu_torch"),
                     tmp_path / "commet_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     script = textwrap.dedent("""
         import sys
-        from commet_tpu_torch.cli import commet, filter_reads
+        from commet_tpu_torch.cli import (bvop, commet, compare_reads,
+                                          filter_reads)
         for name, seq in (("a", "ACGTTGCAAGGCTTACGATCGATCGGATCCA" * 3),
                           ("b", "TTGCAAGGCTTACGATCGATCGGATCCAAC" * 3)):
             with open(f"{name}.fa", "w") as f:
                 f.write(f">r0\\n{seq}\\n>r1\\nACGTNCGTACGT\\n")
         with open("sets.txt", "w") as f:
             f.write("A: a.fa\\nB: b.fa\\n")
+        for name in "ab":
+            with open(f"{name}.txt", "w") as f:
+                f.write(f"{name.upper()}: {name}.fa\\n")
         assert filter_reads.main(["a.fa", "-l", "20", "-o", "a.bv"]) == 0
         assert commet.main(["sets.txt", "-k", "15", "--no-plots", "-o",
                             "out", "--device", "cpu"]) == 0
+        assert compare_reads.main(["-i", "a.txt", "-s", "b.txt", "-k", "15",
+                                   "-o", "cr", "-l", "cr", "--device",
+                                   "cpu"]) == 0
+        assert bvop.main(["cr/b.fa_in_A.bv", "-n", "-p", "not.bv"]) == 0
         loaded = sorted(m for m in sys.modules if m == "commet_tpu"
                         or m.startswith(("commet_tpu.", "jax")))
         assert not loaded, loaded
@@ -116,7 +126,10 @@ def test_port_copy_runs_alone(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ALONE_OK" in proc.stdout
     assert sorted(os.listdir(tmp_path)) == [
-        "a.bv", "a.fa", "b.fa", "commet_tpu_torch", "out", "sets.txt"]
+        "a.bv", "a.fa", "a.txt", "b.fa", "b.txt", "commet_tpu_torch", "cr",
+        "not.bv", "out", "sets.txt"]
+    assert sorted(os.listdir(tmp_path / "cr")) == [
+        "A_in_B.log", "B_in_A.log", "a.fa_in_B.bv", "b.fa_in_A.bv"]
     built = os.listdir(tmp_path / "commet_tpu_torch" / "_build")
     assert [b for b in built if b.startswith("libcommet_io_")]
     assert os.path.exists(tmp_path / "out" / "matrix_plain.csv")
