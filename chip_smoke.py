@@ -16,8 +16,9 @@ Phases, each printing one line with its seconds:
   1. card: the GPU's name and power limit (nvidia-smi) and torch's name;
   2. build: every hand-written kernel from commet_tpu_torch/core/csrc/
      (join.cu: commet_join, commet_join_multi; planes.cu:
-     commet_build_planes, commet_probe_planes, commet_probe_planes_multi),
-     one nvcc per source, started together;
+     commet_build_planes, commet_probe_planes, commet_probe_planes_multi,
+     commet_build_planes_range, commet_probe_planes_part; filter.cu:
+     commet_class_counts), one nvcc per source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows), sorted and
@@ -105,9 +106,42 @@ Phases, each printing one line with its seconds:
      and prints the popcount line; extract_reads of set4.fa with
      set4.fa_in_set2.bv writes exactly the fasta records of its set bits;
      generate_random_bv at 25% keeps 20-30% of set 1's reads.
-Each main path (phases 6, 10, 11 and 12's --jobs run) runs with every
-kernel's launch count set to 0 just before it and read just after. At the
-end no module of JAX or of the JAX package (commet_tpu) may be loaded.
+ 13. more than one device, in parts run where their data lives (a mesh of
+     4 entries: distinct cards where the machine has them, else the one
+     card repeated, whose shares then run one after another):
+     13.1 (after phase 9's edges) the ranged plane build at k = 33 of phase
+          9's first 65,536-read batch into 4 word ranges (1 GiB shards),
+          each equal to its plain version's and to its words of
+          commet_build_planes' planes, then all of phase 9's 4M reads; the
+          ranged probe of phase 9's probe batch against each range, masks
+          equal to the plain version's, sharded tags equal to
+          probe_planes'; the class counts of a dirty 65,536-read batch
+          equal to the plain version's and numpy's, then
+          filter_batch_device equal to the host filter; each kernel timed
+          by CUDA events beside its bound and its plain version;
+     13.2 (in phase 6's directory) set 2 against set 1 (1M reads, k = 32,
+          sorted index) through Engine on the mesh (DP stream and DP exact)
+          and alone: equal .bv bytes and counter line;
+     13.3 (in phase 10's directory, after phase 11) set 2 against set 1
+          (4M reads, k = 33, planes) with mesh_mode dp (replicated planes,
+          split batches) and plane (4 word shards of 1 GiB: the ranged
+          build and probe kernels), each equal to the single-device call;
+     13.4 (in phase 7's directory, after phase 12) the commet driver with a
+          2-entry mesh engine takes the classic rounds and writes the
+          classic run's files; with 2 or more cards, commet --devices 2 too;
+     13.5 two commet processes on the card joined by
+          COMMET_TPU_COORDINATOR (gloo, localhost), then commet_analysis:
+          the classic run's files;
+     13.6 (in phase 6's directory) set 1 as one sorted index cut into 4
+          key-range slices; set 2's first 65,536 reads through the sharded
+          stream and exact steps give the single join path's tags.
+     Each part prints its walls, launches and max_memory_allocated.
+Each main path (phases 6, 10, 11 and 12's --jobs run, 13.2 to 13.4's
+runs, 13.1's filter) runs with every kernel's launch count set to 0 just
+before it and read just after; the kernels line takes the ranged build and
+probe launches from 13.3's plane-mode run and the class counts' from
+13.1's filter_batch_device. At the end no module of JAX or of the JAX
+package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -143,6 +177,14 @@ PLANES_SOURCE = "commet_tpu_torch/core/csrc/planes.cu"
 BUILD_REPLACES = "commet_tpu/core/kernels.py:716"
 PROBE_REPLACES = "commet_tpu/core/kernels.py:405"
 PROBE_MULTI_REPLACES = "commet_tpu/core/kernels.py:604"
+BUILD_RANGE_REPLACES = "commet_tpu/parallel/sharded.py:114"
+PROBE_PART_REPLACES = "commet_tpu/parallel/sharded.py:91"
+FILTER_SOURCE = "commet_tpu_torch/core/csrc/filter.cu"
+CLASS_COUNTS_REPLACES = "commet_tpu/core/kernels.py:831"
+# phase 13: mesh entries (word ranges, shares, key-range slices) and the
+# two ranks' time limit
+MESH_N = 4
+RANK_TIMEOUT = 600
 # the dense-plane phases: COMMET's default k, 4 GiB plane sets
 PLANE_K = 33
 PLANE_BATCH = 65536
@@ -781,6 +823,40 @@ def _probe_addrs(pl, c2, lengths, length: int, k: int, t: int, wmax: int):
     return torch.cat(addrs)
 
 
+def _plane_reads(device, gen_seed: int, lpad: int):
+    """Phase 9's indexed reads: PLANE_FILL_READS random N-free 100 bp reads
+    as [n, lpad / 16] int32 code words, from a torch generator seeded with
+    ``gen_seed``, and the generator."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(gen_seed)
+    words = torch.randint(-2 ** 31, 2 ** 31, (PLANE_FILL_READS, lpad // 16),
+                          dtype=torch.int32, device=device, generator=gen)
+    return words, gen
+
+
+def _probe_batch(words, device, gen_seed: int, lpad: int):
+    """Phase 9's probe batch: PLANE_BATCH random reads, a third holding a
+    2k bp fragment of an indexed read (N-free: lengths carry the validity),
+    as code words on the card."""
+    import torch
+    n, k = PLANE_BATCH, PLANE_K
+    rng = np.random.default_rng(gen_seed)
+    qcodes = rng.integers(0, 4, (n, READ_LEN), dtype=np.uint8)
+    third = n // 3
+    donors = rng.integers(0, PLANE_FILL_READS, third)
+    dcodes = _unpack_codes(words[torch.from_numpy(donors).to(device)]
+                           .cpu().numpy().view(np.uint32), READ_LEN)
+    frag = 2 * k
+    src = rng.integers(0, READ_LEN - frag + 1, third)
+    dst = rng.integers(0, READ_LEN - frag + 1, third)
+    off = np.arange(frag)
+    qcodes[np.arange(third)[:, None], dst[:, None] + off] = \
+        dcodes[np.arange(third)[:, None], src[:, None] + off]
+    return torch.from_numpy(_pack_codes(np.pad(
+        qcodes, ((0, 0), (0, lpad - READ_LEN)))).view(np.int32)).to(device)
+
+
 def phase_plane_kernels(device, gen_seed: int):
     """The plane kernels at k = 33 (4 GiB plane sets) against their plain
     versions: the build on one 65,536-read x 100 bp batch (word-for-word
@@ -795,10 +871,7 @@ def phase_plane_kernels(device, gen_seed: int):
     from commet_tpu_torch.core import planes
     k, n, lpad = PLANE_K, PLANE_BATCH, 128
     wmax = READ_LEN - k + 1
-    gen = torch.Generator(device=device)
-    gen.manual_seed(gen_seed)
-    words = torch.randint(-2 ** 31, 2 ** 31, (PLANE_FILL_READS, lpad // 16),
-                          dtype=torch.int32, device=device, generator=gen)
+    words, gen = _plane_reads(device, gen_seed, lpad)
     lengths = torch.full((n,), READ_LEN, dtype=torch.int32, device=device)
     batches = [words[i:i + n] for i in range(0, PLANE_FILL_READS, n)]
 
@@ -842,22 +915,8 @@ def phase_plane_kernels(device, gen_seed: int):
     fill_s = time.perf_counter() - t0
     fill = _plane_fill(kern, k)
 
-    # the probe batch: random reads, a third holding a 66 bp fragment of an
-    # indexed read (the reads are N-free: lengths carry the validity)
-    rng = np.random.default_rng(gen_seed)
-    qcodes = rng.integers(0, 4, (n, READ_LEN), dtype=np.uint8)
+    qc2 = _probe_batch(words, device, gen_seed, lpad)
     third = n // 3
-    donors = rng.integers(0, PLANE_FILL_READS, third)
-    dcodes = _unpack_codes(words[torch.from_numpy(donors).to(device)]
-                           .cpu().numpy().view(np.uint32), READ_LEN)
-    frag = 2 * k
-    src = rng.integers(0, READ_LEN - frag + 1, third)
-    dst = rng.integers(0, READ_LEN - frag + 1, third)
-    off = np.arange(frag)
-    qcodes[np.arange(third)[:, None], dst[:, None] + off] = \
-        dcodes[np.arange(third)[:, None], src[:, None] + off]
-    qc2 = torch.from_numpy(_pack_codes(np.pad(
-        qcodes, ((0, 0), (0, lpad - READ_LEN)))).view(np.int32)).to(device)
 
     def probe(pl):
         return planes.probe_planes(pl, qc2, lengths, True, lpad, k, T, wmax)
@@ -1605,11 +1664,425 @@ def phase_tools(device: str, tmp: str, fof: str, classic: str):
     return walls, len(keep), share
 
 
+def smoke_mesh(device, n: int):
+    """A mesh of ``n`` entries: n distinct cards where the machine has them,
+    else ``device`` repeated (its shares then run one after another)."""
+    import torch
+    from commet_tpu_torch.parallel import sharded
+    if torch.cuda.device_count() >= n:
+        return sharded.make_mesh([f"cuda:{i}" for i in range(n)])
+    return sharded.Mesh([device] * n)
+
+
+def _dirty_batch(device, seed: int, lpad: int):
+    """PLANE_BATCH reads of 50-100 random bases, 1% of the bases N: code
+    words, validity words and lengths, as numpy arrays and on the card."""
+    import torch
+    from commet_tpu_torch.core import keys
+    rng = np.random.default_rng(seed)
+    n = PLANE_BATCH
+    codes = rng.integers(0, 4, (n, lpad), dtype=np.uint8)
+    lens = rng.integers(READ_LEN // 2, READ_LEN + 1, n).astype(np.int32)
+    valid = (np.arange(lpad) < lens[:, None]) & (rng.random((n, lpad)) > 0.01)
+    c2 = _pack_codes(codes)
+    vd = np.bitwise_or.reduce(valid.reshape(n, lpad // 32, 32).astype(
+        np.uint32) << np.arange(32, dtype=np.uint32), axis=2)
+    on_card = (keys.host_u32(c2).to(device), keys.host_u32(vd).to(device),
+               torch.from_numpy(lens).to(device))
+    host_counts = np.stack([((codes == c) & valid).sum(axis=1)
+                            for c in range(4)], axis=1)
+    host_counts = np.concatenate(
+        [host_counts, (lens - host_counts.sum(axis=1))[:, None]], axis=1)
+    return (c2, vd, lens), on_card, host_counts.astype(np.int64)
+
+
+def phase_mesh_kernels(device, gen_seed: int):
+    """Phase 13.1: the multi-device kernels against their plain versions.
+    The ranged build at k = 33 into 4 word ranges (1 GiB shards) of phase
+    9's first 65,536-read batch, each range equal to its plain version's and
+    to its words of commet_build_planes' planes; timed on fresh batches;
+    then every range and the whole set filled from phase 9's 4M reads. The
+    ranged probe of phase 9's probe batch against each range, masks equal to
+    the plain version's, the sharded tags equal to probe_planes'. The class
+    counts of a dirty 65,536-read batch equal to the plain version's and to
+    numpy's; then filter_batch_device on it (the path the launch count
+    reads) equal to the host filter. Each kernel's ms by CUDA events per
+    launch, beside its bound (the bytes it must move at the HBM rate) and
+    its plain version's ms."""
+    import torch
+    from commet_tpu_torch.core import filter as tfilter
+    from commet_tpu_torch.core import keys, planes
+    from commet_tpu_torch.parallel import sharded
+    k, n, lpad = PLANE_K, PLANE_BATCH, 128
+    wmax = READ_LEN - k + 1
+    words, _gen = _plane_reads(device, gen_seed, lpad)
+    lengths = torch.full((n,), READ_LEN, dtype=torch.int32, device=device)
+    batches = [words[i:i + n] for i in range(0, PLANE_FILL_READS, n)]
+    ps = sharded.alloc_planes_sharded(k, sharded.Mesh([device] * MESH_N))
+    wl, w = ps.wl, planes.plane_words(k)
+    whole = planes.alloc_planes(k, device)
+
+    def build(c2):
+        planes.build_planes(whole, c2, lengths[:len(c2)], True, lpad, k)
+
+    def ranged(d, c2):
+        planes.build_planes_range(ps.shards[d], c2, lengths[:len(c2)], True,
+                                  lpad, k, d * wl, wl)
+
+    def ranged_plain(d, c2, shard):
+        planes.build_planes_plain(shard, c2, lengths[:len(c2)], True, lpad,
+                                  k, d * wl, wl)
+
+    def same_as_whole(d):
+        return torch.equal(ps.shards[d].view(4, wl),
+                           whole.view(4, w)[:, d * wl:(d + 1) * wl])
+
+    build(batches[0])
+    plain = torch.zeros_like(ps.shards[0])
+    for d in range(MESH_N):
+        ranged(d, batches[0])
+        plain.zero_()
+        ranged_plain(d, batches[0], plain)
+        torch.cuda.synchronize()
+        if not torch.equal(ps.shards[d], plain):
+            raise AssertionError(f"ranged build differs from its plain "
+                                 f"version in range {d}")
+        if not same_as_whole(d):
+            raise AssertionError(f"range {d} differs from its words of "
+                                 "commet_build_planes' planes")
+    reps = 4  # fresh batches: each call sets new bits, as a build does
+    timed = batches[1:1 + reps]
+    launches = reps * MESH_N
+    build_ms = _events_ms([lambda b=b, d=d: ranged(d, b) for b in timed
+                           for d in range(MESH_N)]) / launches
+    build_plain_ms = _events_ms([lambda b=b, d=d: ranged_plain(d, b, plain)
+                                 for b in timed
+                                 for d in range(MESH_N)]) / launches
+    del plain
+    # per batch: the 4 ranges each read the batch once, and together touch
+    # each distinct plane sector of the batch's atomics once (read and
+    # written); a range boundary is a multiple of 8 words, so no sector
+    # straddles two
+    batch_bytes = n * (lpad // 16) * 4 + n * 4
+    build_sectors = sum(_sectors(_build_addrs(b, lengths[:len(b)], lpad, k))
+                        for b in timed) // reps
+    build_bound = bound_ms((MESH_N * batch_bytes + 2 * SECTOR * build_sectors)
+                           / MESH_N)
+    t0 = time.perf_counter()
+    for i, b in enumerate(batches[1:]):
+        build(b)
+        if i >= reps:
+            for d in range(MESH_N):
+                ranged(d, b)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    if not all(same_as_whole(d) for d in range(MESH_N)):
+        raise AssertionError("the filled ranges differ from the whole set")
+
+    qc2 = _probe_batch(words, device, gen_seed, lpad)
+    del words, batches
+
+    def part(d):
+        return planes.probe_planes_part(ps.shards[d], qc2, lengths, True,
+                                        lpad, k, d * wl, wl, wmax)
+
+    def part_plain(d):
+        return planes.probe_planes_part_plain(ps.shards[d], qc2, lengths,
+                                              True, lpad, k, d * wl, wl,
+                                              wmax)
+
+    merged = None
+    for d in range(MESH_N):
+        got, want = part(d), part_plain(d)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ranged probe differs from its plain "
+                                 f"version in range {d} on "
+                                 f"{int((got != want).sum())} masks")
+        merged = got if merged is None else merged | got
+    tags = sharded.probe_planes_sharded(ps, qc2, lengths, True, lpad, T, wmax)
+    single = planes.probe_planes(whole, qc2, lengths, True, lpad, k, T, wmax)
+    if not torch.equal(tags, single) or not bool(tags[:n // 3].all()):
+        raise AssertionError("sharded tags differ from probe_planes' or miss "
+                             "a read holding an indexed fragment")
+    members = int((merged == 15).sum())
+    part_ms = cuda_ms(lambda: [part(d) for d in range(MESH_N)], 10) / MESH_N
+    part_plain_ms = cuda_ms(lambda: [part_plain(d) for d in range(MESH_N)],
+                            2) / MESH_N
+    # per range: the batch read and the [n, 2, wmax] masks written once;
+    # together the ranges load each distinct sector of every complete
+    # window's four plane words, both strands, once
+    wk = keys.window_keys(keys.unpack_codes_clean(qc2, lengths, lpad), k,
+                          "both", wmax)
+    ok = wk["ok"]
+    addrs = torch.cat([p * w + (key[ok] >> 5) for s in ("f", "r")
+                       for p, key in enumerate(planes.four_plane_keys(
+                           wk[s + "a"], wk[s + "b"]))])
+    part_loads, part_sectors = addrs.numel(), _sectors(addrs)
+    del wk, ok, addrs, ps, whole
+    part_bound = bound_ms((MESH_N * (qc2.numel() * 4 + n * 4
+                                     + n * 2 * wmax)
+                           + SECTOR * part_sectors) / MESH_N)
+
+    host, (c2, vd, lens), want_counts = _dirty_batch(device, gen_seed + 2,
+                                                     lpad)
+    got = tfilter.class_counts_packed(c2, vd, lens, lpad)
+    want = tfilter.class_counts_packed_plain(c2, vd, lens, lpad)
+    torch.cuda.synchronize()
+    cc_err = int((got - want).abs().max())
+    if not torch.equal(got, want) or not np.array_equal(
+            got.cpu().numpy(), want_counts):
+        raise AssertionError("class counts kernel differs from its plain "
+                             "version or from numpy")
+    cc_ms = cuda_ms(lambda: tfilter.class_counts_packed(c2, vd, lens, lpad),
+                    20)
+    cc_plain_ms = cuda_ms(lambda: tfilter.class_counts_packed_plain(
+        c2, vd, lens, lpad), 5)
+    cc_bound = bound_ms(c2.numel() * 4 + vd.numel() * 4 + n * 4 + n * 5 * 4)
+    tfilter.class_counts_packed.launches = 0
+    kw = {"min_size": 60, "max_n": 0, "min_shannon": 1.9}
+    keep, stats = tfilter.filter_batch_device(*host, lpad, device=device, **kw)
+    cc_launches = tfilter.class_counts_packed.launches
+    keep_h, stats_h = tfilter.filter_reads_counts(
+        want_counts, host[2].astype(np.int64), **kw)
+    if cc_launches == 0 or stats != stats_h or not np.array_equal(keep,
+                                                                  keep_h):
+        raise AssertionError(f"filter_batch_device {stats} (launches "
+                             f"{cc_launches}) != the host filter {stats_h}")
+    return {
+        "build_range": {"max_abs_err": 0, "ms": build_ms,
+                        "plain_ms": build_plain_ms, "bound_ms": build_bound},
+        "probe_part": {"max_abs_err": 0, "ms": part_ms,
+                       "plain_ms": part_plain_ms, "bound_ms": part_bound},
+        "class_counts": {"max_abs_err": cc_err, "ms": cc_ms,
+                         "plain_ms": cc_plain_ms, "bound_ms": cc_bound},
+        "build_sectors": build_sectors, "fill_s": fill_s,
+        "part_loads": part_loads, "part_sectors": part_sectors,
+        "members": members, "tagged": int(tags.sum()),
+        "filter_stats": stats, "class_counts_launches": cc_launches}
+
+
+def _pair_sets(tmp: str, names):
+    """Read sets of <tmp>/<name>.fa, every read eligible."""
+    from commet_tpu_torch.io.reads import ReadSet
+    out = []
+    for name in names:
+        rs = ReadSet(name)
+        rs.add_file(os.path.join(tmp, name + ".fa"))
+        out.append(rs)
+    return out
+
+
+def _engine_pair(device, tmp: str, k: int, name: str, **engine_kw):
+    """set2 against set1 of ``tmp`` through an Engine: (wall, .bv bytes,
+    counter line, max_memory_allocated, launches by kernel)."""
+    import torch
+    from commet_tpu_torch.core import filter as tfilter
+    from commet_tpu_torch.core import planes, stream
+    from commet_tpu_torch.device import synchronize
+    from commet_tpu_torch.engine.engine import Engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(stream, planes)
+    out = os.path.join(tmp, "mesh13_" + name) + "/"
+    os.makedirs(out, exist_ok=True)
+    index_set, query = _pair_sets(tmp, ("set1", "set2"))
+    eng = Engine(k=k, t=T, device=device, **engine_kw)
+    t0 = time.perf_counter()
+    eng.index_and_search(index_set, [query], out_dir=out, log_dir=out)
+    synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    launched = {fn.__name__: fn.launches for fn in _kernel_fns(
+        stream, planes, tfilter) if fn.launches}
+    with open(out + "set2.fa_in_set1.bv", "rb") as f:
+        payload = f.read()
+    return (wall, payload, last_line(out + "set2_in_set1.log"),
+            torch.cuda.max_memory_allocated(), launched)
+
+
+def last_line(path: str) -> str:
+    with open(path) as f:
+        return f.read().splitlines()[-1]
+
+
+def phase_mesh_pair(device, tmp: str, k: int, runs):
+    """Phases 13.2 and 13.3: set2 against set1 of ``tmp`` on one device and
+    through each of ``runs`` ((name, engine keywords)); every run's .bv bytes
+    and counter line must equal the single-device call's. Returns {name:
+    (wall, counter line, peak bytes, launches)}."""
+    report = {}
+    wall, payload, counters, peak, launched = _engine_pair(device, tmp, k,
+                                                           "single")
+    report["single"] = (wall, counters, peak, launched)
+    for name, kw in runs:
+        got = _engine_pair(device, tmp, k, name, **kw)
+        if got[1] != payload or got[2] != counters:
+            raise AssertionError(f"{name}: set2.fa_in_set1.bv or counters "
+                                 f"{got[2]} differ from the single-device "
+                                 f"call's {counters}")
+        report[name] = (got[0], got[2], got[3], got[4])
+    return report
+
+
+def phase_mesh_key_range(device, tmp: str, mesh):
+    """Phase 13.6: phase 6's set 1 as one sorted index (69M pairs, phase 3's
+    density) cut into len(mesh) key-range slices; the first 65,536 reads of
+    set 2 through sharded_stream_step (each slice joins the full sorted
+    query stream, verdicts max-merged) and sharded_exact_step for the AMBIG
+    residue give the tags of the single join path after its exact fallback;
+    no decided verdict contradicts them. Returns the walls, the AMBIG
+    counts, the tags and the slices' sizes."""
+    import torch
+    from commet_tpu_torch.core import keys, stream
+    from commet_tpu_torch.engine.engine import EncodedSet, Engine
+    from commet_tpu_torch.parallel import sharded
+    eng = Engine(k=K, t=T, device=device)
+    index_set, query = _pair_sets(tmp, ("set1", "set2"))
+    enc = EncodedSet(index_set)
+    elig = index_set.eligible()
+    sidx = eng.build_index(enc, elig, int(eng.count_kmers(enc, elig).sum()))
+    rows = query.eligible()[:PLANE_BATCH]
+    lpad = 128
+    wmax = READ_LEN - K + 1
+    c2, vd, _ln, _clean = EncodedSet(query).gather_packed(rows, lpad)
+    c2, vd = keys.host_u32(c2).to(device), keys.host_u32(vd).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v1 = stream.probe_stream_packed(sidx, c2, vd, lpad, K, T, wmax)
+    want = v1 == stream.VERDICT_TAGGED
+    amb1 = v1 == stream.VERDICT_AMBIG
+    want[amb1] = stream.probe_exact_sets(sidx, c2[amb1], vd[amb1], lpad, K,
+                                         T, wmax)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    shards = sharded.shard_stream_index(sidx, len(mesh), mesh)
+    if sum(shards["mi_loc"]) != sidx.mi or sum(shards["set_mi"]) != sidx.mi:
+        raise AssertionError("the slices do not hold the index")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = sharded.sharded_stream_step(mesh, shards, c2, vd, False, lpad, K, T,
+                                    wmax)
+    dec = v != stream.VERDICT_AMBIG
+    tags = v == stream.VERDICT_TAGGED
+    if not torch.equal(tags[dec], want[dec]):
+        raise AssertionError("a decided sharded verdict contradicts the "
+                             "single path's tags")
+    amb = ~dec
+    tags[amb] = sharded.sharded_exact_step(mesh, shards, c2[amb], vd[amb],
+                                           lpad, K, T, wmax)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    if not torch.equal(tags, want):
+        raise AssertionError("key-range-sharded tags differ from the single "
+                             "join path's")
+    return {"single_s": single_s, "sharded_s": sharded_s,
+            "ambig": (int(amb1.sum()), int(amb.sum())),
+            "tagged": int(tags.sum()), "mi": sidx.mi,
+            "mi_loc": shards["mi_loc"]}
+
+
+def phase_mesh_driver(device, tmp: str, fof: str, classic: str, files):
+    """Phase 13.4: the commet driver with a 2-entry mesh engine on phase
+    7's sets (the --devices 2 engine: on a machine with one card that card
+    twice) takes the classic rounds and writes the classic run's files; with
+    two or more cards `commet --devices 2` as well. Returns the walls and
+    the join launches of the first run."""
+    import torch
+    from commet_tpu_torch.cli import commet
+    from commet_tpu_torch.core import planes, stream
+    mesh = smoke_mesh(device, 2)
+    runs = [("mesh2", [])]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("devices2", ["--devices", "2"]))
+    walls, joins = {}, None
+    real = commet.auto_mesh
+    for name, flags in runs:
+        out = os.path.join(tmp, name) + "/"
+        zero_counts(stream, planes)
+        tee = _Tee(io.StringIO())
+        if not flags:
+            commet.auto_mesh = lambda _device: mesh
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                rc = commet.main([fof, "-k", str(K), "-t", str(T),
+                                  "--no-plots", "-o", out, "--device",
+                                  str(device), *flags])
+        finally:
+            commet.auto_mesh = real
+            os.environ.pop("COMMET_TPU_DEVICES", None)
+        walls[name] = time.perf_counter() - t0
+        joins = stream.join_membership.launches if joins is None else joins
+        if rc != 0 or "schedule: classic rounds (a mesh of 2 devices" \
+                not in tee.kept.getvalue():
+            raise AssertionError(f"commet {name}: rc {rc}, not the classic "
+                                 "rounds of a 2-device mesh")
+        _same_files(classic, out, files)
+    return walls, joins
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_two_ranks(tmp: str, fof: str, classic: str, files, *flags):
+    """Phase 13.5: two `commet` processes on the card joined through
+    COMMET_TPU_COORDINATOR on a free localhost port (rank 0 filters, both
+    meet at the barrier, rank r runs rounds r, r + 2), then commet_analysis:
+    the classic run's .bv and CSV files. Returns the ranks' wall and the
+    analysis wall."""
+    from commet_tpu_torch.cli import commet_analysis
+    out = os.path.join(tmp, "ranks") + "/"
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, COMMET_TPU_COORDINATOR=f"localhost:{port}",
+                       COMMET_TPU_NUM_PROCESSES="2",
+                       COMMET_TPU_PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "commet_tpu_torch.cli.commet", fof,
+                 "-k", str(K), "-t", str(T), "--no-plots", "-o", out,
+                 *flags],
+                cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        said = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    ranks_s = time.perf_counter() - t0
+    for rank, (p, text) in enumerate(zip(procs, said)):
+        if p.returncode != 0 or (f"multi-host run: rank {rank}/2 finished "
+                                 "its rounds") not in text:
+            raise AssertionError(f"rank {rank} exited {p.returncode}:\n"
+                                 f"{text[-3000:]}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = commet_analysis.main([fof, "-o", out, "--no-plots"])
+    if rc != 0:
+        raise AssertionError(f"commet_analysis exited {rc}")
+    analysis_s = time.perf_counter() - t0
+    _same_files(classic, out, files)
+    return ranks_s, analysis_s
+
+
+def _kernel_fns(stream, planes, tfilter):
+    """Every kernel wrapper, in the kernels line's order."""
+    return (stream.join_membership, stream.join_membership_multi,
+            planes.build_planes, planes.probe_planes,
+            planes.probe_planes_multi, planes.build_planes_range,
+            planes.probe_planes_part, tfilter.class_counts_packed)
+
+
 def zero_counts(stream, planes):
     """Every kernel wrapper's launch count set to 0."""
-    for fn in (stream.join_membership, stream.join_membership_multi,
-               planes.build_planes, planes.probe_planes,
-               planes.probe_planes_multi):
+    from commet_tpu_torch.core import filter as tfilter
+    for fn in _kernel_fns(stream, planes, tfilter):
         fn.launches = 0
 
 
@@ -1649,6 +2122,19 @@ def run_phase_plane_kernels(device) -> dict:
         f"sectors ({share['multi']}); PyTorch at the same addresses (ms): "
         f"{yard} ({time.perf_counter() - t0:.3f} s)")
     return pk
+
+
+def _kernel_figures(fig: dict) -> str:
+    return (f"kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, "
+            f"bound {fig['bound_ms']:.4f} ms "
+            f"({100 * fig['bound_ms'] / fig['ms']:.1f}% of bound)")
+
+
+def _mesh_walls(pair: dict) -> str:
+    """Each run's wall, peak bytes and kernel launches (phase_mesh_pair)."""
+    return "; ".join(f"{name} {wall:.3f} s, max_memory_allocated {peak} B, "
+                     f"launches {launched}"
+                     for name, (wall, _c, peak, launched) in pair.items())
 
 
 def _pct(share) -> str:
@@ -1813,6 +2299,25 @@ def main(argv=None) -> int:
             f"launches {launches_multi}, plane kernel launches "
             f"{stream_planes}, max_memory_allocated {peak} B "
             f"({time.perf_counter() - t0:.3f} s)")
+        torch.cuda.empty_cache()
+        mesh = smoke_mesh(device, MESH_N)
+        t0 = time.perf_counter()
+        pair = phase_mesh_pair(device, tmp, K, [("dp", {"mesh": mesh})])
+        log(f"phase 13.2 mesh DP stream: set2 in set1 of phase 6 (k = {K}, "
+            f"sorted index) on {mesh} equal to the single-device call "
+            f"(.bv bytes, {pair['single'][1]}); "
+            + _mesh_walls(pair) + f" ({time.perf_counter() - t0:.3f} s)")
+        if not pair["dp"][3].get("join_membership"):
+            raise AssertionError("the DP stream launched no join")
+        t0 = time.perf_counter()
+        kr = phase_mesh_key_range(device, tmp, mesh)
+        log(f"phase 13.6 key-range-sharded stream: set1 of phase 6 as one "
+            f"sorted index of {kr['mi']} pairs in {MESH_N} slices "
+            f"{kr['mi_loc']}, set2's first {PLANE_BATCH} reads: tags equal "
+            f"to the single join path's after the exact fallback "
+            f"({kr['tagged']} tagged; AMBIG single/sharded {kr['ambig']}); "
+            f"single path {kr['single_s']:.3f} s, sharded path "
+            f"{kr['sharded_s']:.3f} s ({time.perf_counter() - t0:.3f} s)")
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1855,6 +2360,23 @@ def main(argv=None) -> int:
             f"{100 * share:.2f}%; walls "
             + ", ".join(f"{n} {w:.3f} s" for n, w in tool_walls.items())
             + f" ({time.perf_counter() - t0:.3f} s)")
+        t0 = time.perf_counter()
+        drv_walls, drv_joins = phase_mesh_driver(device, tmp, fof, classic,
+                                                 files)
+        log(f"phase 13.4 mesh driver: commet with a 2-entry mesh engine "
+            f"({smoke_mesh(device, 2)}) took the classic rounds and wrote the "
+            f"classic run's {len(files)} files (join launches {drv_joins}); "
+            f"walls " + ", ".join(f"{n} {w:.3f} s" for n, w in
+                                  drv_walls.items())
+            + f", classic {job_walls[0]:.3f} s "
+            f"({time.perf_counter() - t0:.3f} s)")
+        t0 = time.perf_counter()
+        ranks_s, analysis_s = phase_two_ranks(tmp, fof, classic, files)
+        log(f"phase 13.5 two ranks: two commet processes on the card "
+            f"(COMMET_TPU_COORDINATOR, gloo) then commet_analysis wrote the "
+            f"classic run's {len(files)} files; ranks {ranks_s:.3f} s "
+            f"(process start-up included), commet_analysis "
+            f"{analysis_s:.3f} s ({time.perf_counter() - t0:.3f} s)")
 
     torch.cuda.empty_cache()
     pk = run_phase_plane_kernels(device)
@@ -1865,6 +2387,28 @@ def main(argv=None) -> int:
         f"plain versions at k in {EDGE_K}, t in {EDGE_T}, S in {EDGE_S}, "
         f"dirty and clean batches of reads shorter than k, 100 and 300 bp "
         f"({cases} grouped cases) ({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mk = phase_mesh_kernels(device, 33)
+    log(f"phase 13.1 mesh kernels: k = {PLANE_K}; ranged build of one "
+        f"{PLANE_BATCH}-read batch into {MESH_N} word ranges equal to its "
+        f"plain version's and to commet_build_planes' planes, "
+        + _kernel_figures(mk["build_range"])
+        + f" per range launch, {mk['build_sectors']} distinct sectors a "
+        f"batch; {PLANE_FILL_READS} reads built into the whole set and the "
+        f"ranges in {mk['fill_s']:.3f} s; ranged probe masks of the probe "
+        f"batch equal to the plain version's, {mk['members']} member "
+        f"windows, sharded tags = probe_planes' ({mk['tagged']} tagged), "
+        + _kernel_figures(mk["probe_part"])
+        + f" per range launch, {mk['part_loads']} plane loads on "
+        f"{mk['part_sectors']} distinct sectors; class counts of a dirty "
+        f"{PLANE_BATCH}-read batch equal to the plain version's and "
+        f"numpy's, " + _kernel_figures(mk["class_counts"])
+        + f"; filter_batch_device = the host filter {mk['filter_stats']} "
+        f"(class_counts launches {mk['class_counts_launches']}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+        f"({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1906,6 +2450,23 @@ def main(argv=None) -> int:
             f"the planes, passes 2 and 3 on sorted indexes; "
             f"{' and '.join(same)} equal to the driver's; build_planes/probe_planes/join launches "
             f"{cr_counts} ({time.perf_counter() - t0:.3f} s)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh = smoke_mesh(device, MESH_N)
+        pair = phase_mesh_pair(device, tmp, PLANE_K, [
+            ("dp", {"mesh": mesh, "mesh_mode": "dp"}),
+            ("plane", {"mesh": mesh, "mesh_mode": "plane"})])
+        mesh_launches = pair["plane"][3]
+        if not pair["dp"][3].get("probe_planes") or min(
+                mesh_launches.get("build_planes_range", 0),
+                mesh_launches.get("probe_planes_part", 0)) == 0:
+            raise AssertionError(f"mesh launches {pair}")
+        log(f"phase 13.3 mesh planes: set2 in set1 of phase 10 (k = "
+            f"{PLANE_K}, {PLANE_SET_READS} reads, planes) with mesh_mode dp "
+            f"and plane ({MESH_N} word shards of "
+            f"{planes.plane_bytes(PLANE_K) // MESH_N} B) on {mesh} equal to "
+            f"the single-device call (.bv bytes, {pair['single'][1]}); "
+            + _mesh_walls(pair) + f" ({time.perf_counter() - t0:.3f} s)")
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:
@@ -1933,7 +2494,17 @@ def main(argv=None) -> int:
         for name, replaces, launched, key in zip(
             ("build_planes", "probe_planes", "probe_planes_multi"),
             (BUILD_REPLACES, PROBE_REPLACES, PROBE_MULTI_REPLACES),
-            plane_counts, ("build", "probe", "multi"))]}))
+            plane_counts, ("build", "probe", "multi"))] + [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launched, **mk[key],
+         **NO_LIBRARY}
+        for name, source, replaces, launched, key in (
+            ("build_planes_range", PLANES_SOURCE, BUILD_RANGE_REPLACES,
+             mesh_launches["build_planes_range"], "build_range"),
+            ("probe_planes_part", PLANES_SOURCE, PROBE_PART_REPLACES,
+             mesh_launches["probe_planes_part"], "probe_part"),
+            ("class_counts", FILTER_SOURCE, CLASS_COUNTS_REPLACES,
+             mk["class_counts_launches"], "class_counts"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

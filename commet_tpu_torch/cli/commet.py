@@ -1,5 +1,5 @@
 """commet driver CLI, the all-vs-all pipeline (reference Commet.py:438-601),
-PyTorch port of commet_tpu.cli.commet on one host.
+PyTorch port of commet_tpu.cli.commet.
 
 Given a file-of-files manifest (one line per read set,
 "name: file[,bv]; file[,bv]; ..."), it:
@@ -23,8 +23,16 @@ form can serve the sets. ``--jobs N`` (and ``--sge``, which means
 loads beside the search that holds the card, and resumes from its
 ``.job_<name>.done`` markers (``run_scheduled``). The
 outputs are the same either way. State flows through .bv files between
-steps like the reference's subprocess pipeline. ``--devices`` other than 1
-and multi-host runs are not ported yet (ROADMAP).
+steps like the reference's subprocess pipeline.
+
+``--devices N|all`` (COMMET_TPU_DEVICES) runs the engine on a mesh of N
+distinct local cards (parallel/sharded.py; fewer cards than asked exit
+non-zero), or with ``--device cpu`` N CPU shards; the amortized schedule
+then declines and the classic rounds run. With COMMET_TPU_COORDINATOR /
+_NUM_PROCESSES / _PROCESS_ID (parallel/distributed.py) several processes
+share the work: rank 0 filters, all meet at a barrier, rank r runs rounds
+r, r + P, ..., and each rank ends after its rounds with a line asking for
+commet_analysis, which writes the matrices (the reference's --sge flow).
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from commet_tpu_torch.io.bv import BitVector
 from commet_tpu_torch.io.fof import (driver_read_bvs, driver_read_files,
                                      driver_set_names)
 from commet_tpu_torch.io.reads import ReadSet
+from commet_tpu_torch.parallel import distributed
+from commet_tpu_torch.parallel.sharded import auto_mesh
 
 
 def filter_all_reads(read_matrix, out_dir, l, n, e, m):
@@ -187,6 +197,11 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
     run_amortized_rounds."""
     if os.environ.get("COMMET_TPU_MULTI", "1") == "0":
         print("schedule: classic rounds (COMMET_TPU_MULTI=0)")
+        return False
+    if eng.mesh is not None:
+        print(f"schedule: classic rounds (a mesh of {len(eng.mesh)} "
+              f"devices, {eng.mesh_mode} mode: the amortized schedule runs "
+              "on one device)")
         return False
     env = os.environ.get("COMMET_TPU_RESIDENT_BUDGET")
     budget = float(env) if env else None
@@ -385,7 +400,15 @@ def output_vectors(read_matrix, bv_matrix, names, out_dir):
     print("\t\t" + out_dir + "vector_percentage.csv")
 
 
+def _devices_arg(value: str) -> str:
+    if value != "all" and not (value.isdigit() and int(value) >= 1):
+        raise argparse.ArgumentTypeError(
+            f"{value!r}: a count of at least 1, or 'all'")
+    return value
+
+
 def main(argv=None) -> int:
+    distributed.init_distributed()  # no-op without COMMET_TPU_COORDINATOR
     parser = argparse.ArgumentParser(
         description="Computes the filtering and the full N x N intersections "
                     "of read sets (PyTorch / CUDA)")
@@ -411,8 +434,13 @@ def main(argv=None) -> int:
                              "unused (no external binaries)")
     parser.add_argument("--batch", type=int, default=DEFAULT_BATCH,
                         help="reads per batch of the exact fallback")
-    parser.add_argument("--devices", type=str, default=None,
-                        help="number of cards to use; only 1 is ported")
+    parser.add_argument("--devices", type=_devices_arg, default=None,
+                        help="number of local cards to use, or 'all' (sets "
+                             "COMMET_TPU_DEVICES; fewer cards than asked "
+                             "exit non-zero); with --device cpu, CPU "
+                             "shards. The planes replicate and the read "
+                             "batches split when they fit a card, else "
+                             "the planes shard")
     parser.add_argument("--jobs", type=int, default=1,
                         help="run the pipeline as a dependency-scheduled job "
                              "DAG with N host workers (the reference's --sge "
@@ -424,9 +452,6 @@ def main(argv=None) -> int:
     if args.sge and args.jobs == 1:
         print("SGE mode requested: running as an in-process job DAG")
         args.jobs = 2
-    if args.devices not in (None, "1"):
-        parser.error(f"--devices is not yet ported (ROADMAP): {args.devices} "
-                     "asked, only 1 runs")
     device = resolve_device(args.device)
 
     out_dir = args.directory
@@ -441,25 +466,43 @@ def main(argv=None) -> int:
         l = k * t
     print(f"k={k} t={t} l={l}")
 
+    # several processes (COMMET_TPU_COORDINATOR): each owns a stride of the
+    # comparison rounds over the shared filesystem, as the reference's SGE
+    # jobs do (Commet.py:204-236); the matrices are left to commet_analysis
+    nprocs = distributed.process_count()
+    rank = distributed.process_index()
+
     read_matrix = driver_read_files(args.input_file)
     names = driver_set_names(args.input_file)
     bv_matrix = driver_read_bvs(args.input_file)
     if bv_matrix is None:
-        print("Reads were not filtered, we filter them.")
-        filter_all_reads(read_matrix, out_dir, l, args.n, args.e, args.m)
+        # only rank 0 filters (concurrent writers of one .bv would race);
+        # the others wait for it at the barrier
+        if distributed.is_primary():
+            print("Reads were not filtered, we filter them.")
+            filter_all_reads(read_matrix, out_dir, l, args.n, args.e, args.m)
+        distributed.barrier()
         bv_matrix = [[out_dir + os.path.basename(f) + ".bv" for f in line]
                      for line in read_matrix]
 
-    eng = Engine(k=k, t=t, device=device, batch=args.batch)
+    if args.devices:
+        os.environ["COMMET_TPU_DEVICES"] = args.devices
+    eng = Engine(k=k, t=t, device=device, batch=args.batch,
+                 mesh=auto_mesh(device))
     end = 1 if args.one_vs_all else len(read_matrix) - 1
     if args.jobs > 1:
         run_scheduled(read_matrix, bv_matrix, names, out_dir, end, eng,
                       args.jobs)
-    elif not run_amortized_rounds(read_matrix, bv_matrix, names, out_dir,
-                                  end, eng):
-        for ref_id in range(end):
+    elif not (nprocs == 1 and run_amortized_rounds(
+            read_matrix, bv_matrix, names, out_dir, end, eng)):
+        for ref_id in range(rank, end, nprocs):
             compare_all_against(read_matrix, bv_matrix, names, out_dir,
                                 ref_id, eng)
+    if nprocs > 1:
+        print("multi-host run: rank %d/%d finished its rounds; run "
+              "commet_analysis after all ranks complete to aggregate "
+              "matrices" % (rank, nprocs))
+        return 0
     if args.one_vs_all:
         output_vectors(read_matrix, bv_matrix, names, out_dir)
     else:

@@ -15,6 +15,8 @@ from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine.engine import Engine
 from commet_tpu_torch.io.fof import parse_sets
 from commet_tpu_torch.io.reads import ReadSet
+from commet_tpu_torch.parallel.distributed import init_distributed
+from commet_tpu_torch.parallel.sharded import auto_mesh
 
 _VALUED = ('-i', '-s', '-l', '-o', '-k', '-t', '--device')
 
@@ -27,6 +29,7 @@ def _load(name, entries):
 
 
 def main(argv=None) -> int:
+    init_distributed()  # no-op without COMMET_TPU_COORDINATOR
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -84,8 +87,8 @@ def main(argv=None) -> int:
     qname, qentries = next(iter(parse_sets(search_file_list).items()))
     b = _load(qname, qentries)
 
-    full_compare(Engine(k=kmer_size, t=min_hits, device=dev), a, b,
-                 out_path, log_path)
+    full_compare(Engine(k=kmer_size, t=min_hits, device=dev,
+                        mesh=auto_mesh(dev)), a, b, out_path, log_path)
     return 0
 
 

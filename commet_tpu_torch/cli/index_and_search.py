@@ -5,7 +5,8 @@ writing <file>_in_<IndexSet>.bv result vectors and per-pair .log files.
 ``-f`` runs the full 3-pass two-set comparison in one invocation
 (index_and_search.cpp:304-391). Same flags, defaults, stdout and files as
 commet_tpu.cli.index_and_search, plus ``--device`` (default cuda; cuda
-without a card exits non-zero).
+without a card exits non-zero). COMMET_TPU_DEVICES=N|all runs the engine on
+a mesh of N local devices (parallel/sharded.auto_mesh).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from commet_tpu_torch.device import resolve_device
 from commet_tpu_torch.engine.engine import Engine
 from commet_tpu_torch.io.fof import parse_sets
 from commet_tpu_torch.io.reads import ReadSet
+from commet_tpu_torch.parallel.distributed import init_distributed
+from commet_tpu_torch.parallel.sharded import auto_mesh
 
 
 def load_set(name: str, entries) -> ReadSet:
@@ -67,6 +70,7 @@ _VALUED = ('-i', '-s', '-l', '-o', '-k', '-t', '--device')
 
 
 def main(argv=None) -> int:
+    init_distributed()  # no-op without COMMET_TPU_COORDINATOR
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print(USAGE, file=sys.stderr)
@@ -127,7 +131,8 @@ def main(argv=None) -> int:
         print("Error: -i and -s are mandatory", file=sys.stderr)
         print(USAGE, file=sys.stderr)
         sys.exit(1)
-    eng = Engine(k=kmer_size, t=min_hits, device=resolve_device(device))
+    dev = resolve_device(device)
+    eng = Engine(k=kmer_size, t=min_hits, device=dev, mesh=auto_mesh(dev))
     os.makedirs(log_path, exist_ok=True)
     os.makedirs(out_path, exist_ok=True)
 

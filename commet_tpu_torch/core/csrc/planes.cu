@@ -24,6 +24,21 @@
 //     the full probe's, which this probe gives in one pass.
 // Both probe kernels call one __device__ function (probe_warp), so S = 1 and
 // S > 1 cannot drift apart.
+// Replaces, in commet_tpu/parallel/sharded.py (K11, planes sharded on the
+// word axis, shard d holding words [lo, lo + wl) of each plane as its own
+// [4 * wl] array):
+//   - commet_build_planes_range: build_search_step's _build (sharded.py:
+//     114-134), which sorts, OR-segments and scatter-adds the windows whose
+//     word lies in the shard's range; here the build kernel's atomics, each
+//     made only where its word lies in the range (a template flag, so the
+//     single-set build compiles as before);
+//   - commet_probe_planes_part: _search's _local_membership and the psum of
+//     the per-plane hits (sharded.py:91-99,136-158): per (read, strand,
+//     window) a 4-bit mask of the planes whose bit is set within the range;
+//     the caller ORs the shards' masks (a word lives on one shard), ANDs the
+//     four bits and counts. A warp per read, a lane per window: every lane
+//     loads its window's in-range words together; no greedy count, so every
+//     window of the range is loaded (the bound counts each needed load).
 //
 // Input batch: codes2 [b, nw2] words, base p at bits 2*(p%16) of word p/16
 // (A=0 C=1 G=2 T=3); then either (clean) lengths [b] int32, base p valid iff
@@ -271,10 +286,21 @@ struct ReadCursor {
   }
 };
 
+// Sets a key's bit in a shard holding words [lo, lo + wl) of its plane: no
+// atomic for a word outside the range (below lo the difference wraps).
+__device__ __forceinline__ void or_in_range(uint32_t* __restrict__ plane,
+                                            int64_t lo, int64_t wl,
+                                            uint64_t key) {
+  const uint64_t rel = (key >> 5) - (uint64_t)lo;
+  if (rel < (uint64_t)wl) atomicOr(plane + rel, 1u << (key & 31));
+}
+
 // One thread per read rolls its forward keys over the read and issues four
-// atomicOr per complete window.
+// atomicOr per complete window. Ranged: `planes` is a shard of words [lo, lo
+// + pw) of each plane, and only the atomics that land there are made.
+template <bool Ranged>
 __global__ void build_kernel(uint32_t* __restrict__ planes, int64_t pw,
-                             Batch bt, int k) {
+                             int64_t lo, Batch bt, int k) {
   const uint64_t kmask = low_mask(k);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -293,10 +319,17 @@ __global__ void build_kernel(uint32_t* __restrict__ planes, int64_t pw,
       if (run < k) ++run;
       if (run < k) continue;
       const uint64_t kc = ka ^ kb, kd = ka | kb;
-      atomicOr(planes + (ka >> 5), 1u << (ka & 31));
-      atomicOr(planes + pw + (kb >> 5), 1u << (kb & 31));
-      atomicOr(planes + 2 * pw + (kc >> 5), 1u << (kc & 31));
-      atomicOr(planes + 3 * pw + (kd >> 5), 1u << (kd & 31));
+      if constexpr (Ranged) {
+        or_in_range(planes, lo, pw, ka);
+        or_in_range(planes + pw, lo, pw, kb);
+        or_in_range(planes + 2 * pw, lo, pw, kc);
+        or_in_range(planes + 3 * pw, lo, pw, kd);
+      } else {
+        atomicOr(planes + (ka >> 5), 1u << (ka & 31));
+        atomicOr(planes + pw + (kb >> 5), 1u << (kb & 31));
+        atomicOr(planes + 2 * pw + (kc >> 5), 1u << (kc & 31));
+        atomicOr(planes + 3 * pw + (kd >> 5), 1u << (kd & 31));
+      }
     }
   }
 }
@@ -336,6 +369,48 @@ __global__ void probe_multi_kernel(const int64_t* __restrict__ plane_ptrs,
     probe_warp<G>(pl, ns, pw, bt, row, k, t, wmax, o + row, bt.b);
 }
 
+// Bit p of the result: plane p's bit of its key is set and its word lies in
+// the shard's range [lo, lo + wl) (the shard holds plane p at p * wl).
+__device__ __forceinline__ uint32_t part_mask(const uint32_t* __restrict__ sh,
+                                              int64_t lo, int64_t wl,
+                                              uint64_t a, uint64_t b) {
+  const uint64_t key[4] = {a, b, a ^ b, a | b};
+  uint32_t mask = 0;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint64_t rel = (key[p] >> 5) - (uint64_t)lo;
+    if (rel < (uint64_t)wl)
+      mask |= ((__ldg(sh + p * wl + rel) >> (key[p] & 31)) & 1u) << p;
+  }
+  return mask;
+}
+
+// out: [b, 2, wmax] masks, strand 0 forward, 1 reverse complement; a window
+// that is not complete (or lies past the read) gets 0.
+__global__ void probe_part_kernel(const uint32_t* __restrict__ shard,
+                                  int64_t wl, int64_t lo, Batch bt, int k,
+                                  int wmax, uint8_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const uint64_t m = low_mask(k);
+  for (int64_t row = first_row(); row < bt.b; row += row_stride()) {
+    const int end = row_end(bt, row, wmax + k - 1);
+    uint8_t* fwd = out + row * 2 * (int64_t)wmax;
+    for (int base = 0; base < wmax; base += 32) {
+      const int w = base + lane;
+      uint64_t xa = 0, xb = 0;
+      uint32_t mf = 0, mr = 0;
+      if (w < wmax && window_bits(bt, row, end, w, k, xa, xb)) {
+        mf = part_mask(shard, lo, wl, forward_key(xa, k), forward_key(xb, k));
+        mr = part_mask(shard, lo, wl, ~xa & m, ~xb & m);
+      }
+      if (w < wmax) {
+        fwd[w] = (uint8_t)mf;
+        fwd[wmax + w] = (uint8_t)mr;
+      }
+    }
+  }
+}
+
 unsigned grid_for(int64_t units, int per_block) {
   int64_t blocks = (units + per_block - 1) / per_block;
   if (blocks > (int64_t)1 << 20) blocks = (int64_t)1 << 20;  // grid-stride
@@ -365,9 +440,41 @@ extern "C" int commet_build_planes(void* planes, int64_t plane_words,
                                    int64_t b, int length, int k,
                                    void* stream) {
   if (b <= 0) return 0;
-  build_kernel<<<grid_for(b, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)planes, plane_words,
-      make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  build_kernel<false>
+      <<<grid_for(b, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+          (uint32_t*)planes, plane_words, 0,
+          make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  return (int)cudaGetLastError();
+}
+
+// shard: [4 * wl] words, words [lo, lo + wl) of each plane, updated in
+// place; the batch as above.
+extern "C" int commet_build_planes_range(void* shard, int64_t wl, int64_t lo,
+                                         const void* codes2, int64_t nw2,
+                                         const void* aux, int64_t nwv,
+                                         int clean, int64_t b, int length,
+                                         int k, void* stream) {
+  if (b <= 0) return 0;
+  build_kernel<true>
+      <<<grid_for(b, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+          (uint32_t*)shard, wl, lo,
+          make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  return (int)cudaGetLastError();
+}
+
+// shard as above; out: [b, 2, wmax] uint8 plane masks.
+extern "C" int commet_probe_planes_part(const void* shard, int64_t wl,
+                                        int64_t lo, const void* codes2,
+                                        int64_t nw2, const void* aux,
+                                        int64_t nwv, int clean, int64_t b,
+                                        int length, int k, int wmax,
+                                        void* out, void* stream) {
+  if (b <= 0) return 0;
+  probe_part_kernel<<<grid_for(b, kWarps), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint32_t*)shard, wl, lo,
+      make_batch(codes2, nw2, aux, nwv, clean, b, length), k, wmax,
+      (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 

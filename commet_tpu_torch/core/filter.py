@@ -1,6 +1,8 @@
 """Read-quality filtering: length / N-count / Shannon-entropy / max-reads,
-the host part of commet_tpu/core/filter.py (the device class counts of
-filter_batch_device, K10, are not ported yet).
+counterpart of commet_tpu/core/filter.py. ``filter_batch_device`` counts the
+symbol classes of packed batches on the device (``class_counts_packed``: the
+hand-written CUDA kernel ``csrc/filter.cu`` on a CUDA tensor, its plain
+PyTorch version on a CPU tensor) and decides on the host.
 
 Bit-exact reproduction of the reference filter (src/filter_reads.cpp:184-306):
   per read, in order: reject if len < min_size; else reject if
@@ -20,9 +22,14 @@ float32(log(float64 x)) reproduces it exactly.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
+import torch
+
+from commet_tpu_torch.core import keys
+from commet_tpu_torch.device import resolve_device
 
 _LOG2 = np.log(np.float64(2.0))
 
@@ -76,6 +83,92 @@ def filter_reads(seqs: List[bytes], min_size: int = 0,
     """Filter from raw sequences (python-parsed path)."""
     counts, lengths = class_counts(seqs)
     return filter_reads_counts(counts, lengths, min_size=min_size,
+                               max_n=max_n, min_shannon=min_shannon,
+                               max_reads=max_reads)
+
+
+def class_counts_packed_plain(codes2: torch.Tensor, valid: torch.Tensor,
+                              lengths: torch.Tensor,
+                              length: int) -> torch.Tensor:
+    """[B, 5] int32 counts in plain PyTorch: unpack, compare with each code,
+    sum; other = lengths - the sum."""
+    codes = keys.unpack_codes(codes2, valid, length)
+    acgt = [(codes == c).sum(dim=1) for c in range(4)]
+    other = lengths.to(torch.int64) - sum(acgt)
+    return torch.stack(acgt + [other], dim=1).to(torch.int32)
+
+
+def class_counts_packed(codes2: torch.Tensor, valid: torch.Tensor,
+                        lengths: torch.Tensor, length: int) -> torch.Tensor:
+    """Per-read symbol-class counts [B, 5] int32 of a packed batch: A, C, G,
+    T among the valid positions below ``length``, and other = the read's
+    length less their sum (an N is invalid, like padding). codes2 [B,
+    >= ceil(length/16)], valid [B, >= ceil(length/32)] and lengths [B], int32
+    tensors on one device. Counterpart of kernels.class_counts_packed: a
+    CUDA tensor runs csrc/filter.cu (commet_class_counts, counted in
+    ``class_counts_packed.launches``), a CPU tensor runs
+    class_counts_packed_plain."""
+    fn = "class_counts_packed"
+    device = codes2.device
+    for name, x, dim in (("codes2", codes2, 2), ("valid", valid, 2),
+                         ("lengths", lengths, 1)):
+        if x.device != device or x.dtype != torch.int32 or x.dim() != dim \
+                or not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {dim}-D "
+                             f"int32 tensor on {device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    n = codes2.shape[0]
+    if valid.shape[0] != n or lengths.shape[0] != n or length < 0 \
+            or codes2.shape[1] * 16 < length or valid.shape[1] * 32 < length:
+        raise ValueError(f"{fn}: codes2 {tuple(codes2.shape)}, valid "
+                         f"{tuple(valid.shape)} and lengths "
+                         f"{tuple(lengths.shape)} do not hold {n} reads of "
+                         f"{length} positions")
+    if device.type == "cpu":
+        return class_counts_packed_plain(codes2, valid, lengths, length)
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {device}")
+    out = torch.empty((n, 5), dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    from commet_tpu_torch.core import _cuda
+    lib = _cuda.load("filter")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.commet_class_counts(
+            ctypes.c_void_p(codes2.data_ptr()),
+            ctypes.c_int64(codes2.shape[1]),
+            ctypes.c_void_p(valid.data_ptr()), ctypes.c_int64(valid.shape[1]),
+            ctypes.c_void_p(lengths.data_ptr()), ctypes.c_int64(n),
+            ctypes.c_int(length), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"commet_class_counts launch failed: cudaError "
+                           f"{err}")
+    class_counts_packed.launches += 1
+    return out
+
+
+class_counts_packed.launches = 0
+
+
+def filter_batch_device(codes2: np.ndarray, valid: np.ndarray,
+                        lengths: np.ndarray, length: int, min_size: int = 0,
+                        max_n: int = 2**31 - 1, min_shannon: float = 0.0,
+                        max_reads: int = -1, device="cuda"):
+    """The filter of a packed batch (codes2 [N, ceil(length/16)] and valid
+    [N, ceil(length/32)] uint32, lengths [N]) with its class counts made on
+    ``device`` (class_counts_packed; "cuda" without a card raises) and the
+    float32-exact Shannon decision on the host (filter_reads_counts).
+    Returns (keep, stats) as filter_reads does. Counterpart of
+    filter_batch_device."""
+    dev = resolve_device(device)
+    lens = np.asarray(lengths)
+    counts = class_counts_packed(
+        keys.host_u32(codes2).to(dev), keys.host_u32(valid).to(dev),
+        torch.from_numpy(lens.astype(np.int32)).to(dev), length)
+    return filter_reads_counts(counts.cpu().numpy().astype(np.int64),
+                               lens.astype(np.int64), min_size=min_size,
                                max_n=max_n, min_shannon=min_shannon,
                                max_reads=max_reads)
 

@@ -19,6 +19,11 @@ The build and the probes run the hand-written CUDA kernels of
 ``csrc/planes.cu`` on a CUDA tensor and their plain PyTorch versions on a CPU
 tensor; each kernel wrapper counts its launches in ``.launches``. The build
 updates the planes in place (commet_tpu's build returns a new array).
+
+A shard of a plane set sharded on the word axis (parallel/sharded.py) holds
+words [lo, lo + wl) of each plane as its own [4 * wl] int32 tensor, plane p
+at [p * wl, (p + 1) * wl); ``build_planes_range`` and ``probe_planes_part``
+are the build and the per-plane probe of one shard.
 """
 
 from __future__ import annotations
@@ -148,19 +153,25 @@ def _bit_value(bit: torch.Tensor) -> torch.Tensor:
 
 
 def build_planes_plain(planes: torch.Tensor, codes2, valid_or_lengths,
-                       clean: bool, length: int, k: int) -> torch.Tensor:
+                       clean: bool, length: int, k: int, lo: int = 0,
+                       wl: Optional[int] = None) -> torch.Tensor:
     """Set the four plane bits of every valid forward window of the batch,
     in place, in plain PyTorch: per plane the unique keys, less the bits
     already set (a gather of their words), then one accumulating
     ``index_put_`` over all four planes. A sum of distinct bits of a word is
     their OR (also through the int32 sign bit), so the add is a scatter-OR.
-    Allocates per window, never per plane bit."""
-    w = plane_words(k)
+    Allocates per window, never per plane bit. With ``lo`` and ``wl``,
+    ``planes`` is a shard holding words [lo, lo + wl) of each plane, and
+    only the bits whose word lies there are set."""
+    w = plane_words(k) if wl is None else wl
     a, b = keys.index_keys(_unpack(codes2, valid_or_lengths, clean, length),
                            k)
     idx, val = [], []
     for p, key in enumerate(four_plane_keys(a, b)):
         word, bit = plane_addr(torch.unique(key))
+        word = word - lo
+        mine = (word >= 0) & (word < w)
+        word, bit = word[mine], bit[mine]
         flat = word + p * w
         have = (planes[flat].to(torch.int64) >> bit) & 1
         new = have == 0
@@ -200,6 +211,48 @@ def build_planes(planes: torch.Tensor, codes2, valid_or_lengths,
 
 
 build_planes.launches = 0
+
+
+def _check_shard(fn: str, shard: torch.Tensor, k: int, lo: int, wl: int,
+                 device: torch.device) -> None:
+    _check_int32(fn, "shard", shard, 1, device)
+    if wl < 1 or lo < 0 or lo + wl > plane_words(k) or shard.numel() != 4 * wl:
+        raise ValueError(f"{fn}: a shard of {shard.numel()} words cannot "
+                         f"hold words [{lo}, {lo + wl}) of k={k}'s "
+                         f"{plane_words(k)}-word planes")
+
+
+def build_planes_range(shard: torch.Tensor, codes2, valid_or_lengths,
+                       clean: bool, length: int, k: int, lo: int,
+                       wl: int) -> torch.Tensor:
+    """build_planes into one shard of a plane set sharded on the word axis:
+    ``shard`` [4 * wl] int32 holds words [lo, lo + wl) of each plane, and
+    only the bits whose word lies there are set, in place; returns
+    ``shard``. Counterpart of the _build of commet_tpu's
+    sharded.build_search_step: a CUDA tensor runs csrc/planes.cu
+    (commet_build_planes_range, counted in ``build_planes_range.launches``),
+    a CPU tensor runs build_planes_plain with the range."""
+    fn = "build_planes_range"
+    _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
+    _check_shard(fn, shard, k, lo, wl, codes2.device)
+    if codes2.device.type == "cpu":
+        return build_planes_plain(shard, codes2, valid_or_lengths, clean,
+                                  length, k, lo, wl)
+    if codes2.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    if codes2.shape[0] == 0:
+        return shard
+    with torch.cuda.device(codes2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_build_planes_range", _ptr(shard), ctypes.c_int64(wl),
+                ctypes.c_int64(lo), *_batch_args(codes2, valid_or_lengths,
+                                                 clean, length),
+                ctypes.c_int(k), ctypes.c_void_p(stream))
+    build_planes_range.launches += 1
+    return shard
+
+
+build_planes_range.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -274,6 +327,74 @@ def probe_planes(planes: torch.Tensor, codes2, valid_or_lengths, clean: bool,
 
 
 probe_planes.launches = 0
+
+
+def probe_planes_part_plain(shard: torch.Tensor, codes2, valid_or_lengths,
+                            clean: bool, length: int, k: int, lo: int,
+                            wl: int, wmax: Optional[int] = None
+                            ) -> torch.Tensor:
+    """[B, 2, W] uint8 plane masks in plain PyTorch: window keys, then per
+    plane and strand the bit of its key (_plane_member's gather, plane by
+    plane), set in bit p where the key's word lies in [lo, lo + wl); 0 for
+    a window that is not complete."""
+    wk = keys.window_keys(_unpack(codes2, valid_or_lengths, clean, length),
+                          k, "both", _wmax(length, k, wmax))
+    ok = wk["ok"]
+    out = []
+    for s in ("f", "r"):
+        a = torch.where(ok, wk[s + "a"], 0)
+        b = torch.where(ok, wk[s + "b"], 0)
+        mask = torch.zeros(ok.shape, dtype=torch.uint8, device=ok.device)
+        for p, key in enumerate(four_plane_keys(a, b)):
+            word, bit = plane_addr(key)
+            word = word - lo
+            mine = (word >= 0) & (word < wl) & ok
+            got = (shard[word.clamp(0, wl - 1) + p * wl].to(torch.int64)
+                   >> bit) & 1
+            mask |= ((got == 1) & mine).to(torch.uint8) << p
+        out.append(mask)
+    return torch.stack(out, dim=1)
+
+
+def probe_planes_part(shard: torch.Tensor, codes2, valid_or_lengths,
+                      clean: bool, length: int, k: int, lo: int, wl: int,
+                      wmax: Optional[int] = None) -> torch.Tensor:
+    """Plane masks [B, 2, W] uint8 of a packed batch against one shard of a
+    plane set sharded on the word axis (``shard`` [4 * wl] int32, words
+    [lo, lo + wl) of each plane): for read b, strand s (0 forward, 1 reverse
+    complement) and window w < W (wmax, by default length - k + 1), bit p is
+    set when the window is complete, its plane-p key's word lies in the
+    range and that bit is set. A word lives on one shard, so the OR of all
+    shards' masks is 15 exactly where the window is a member. Counterpart of
+    commet_tpu's sharded._local_membership: a CUDA tensor runs
+    csrc/planes.cu (commet_probe_planes_part, counted in
+    ``probe_planes_part.launches``), a CPU tensor runs
+    probe_planes_part_plain."""
+    fn = "probe_planes_part"
+    _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
+    _check_shard(fn, shard, k, lo, wl, codes2.device)
+    if codes2.device.type == "cpu":
+        return probe_planes_part_plain(shard, codes2, valid_or_lengths, clean,
+                                       length, k, lo, wl, wmax)
+    if codes2.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    w = _wmax(length, k, wmax)
+    out = torch.empty((codes2.shape[0], 2, w), dtype=torch.uint8,
+                      device=codes2.device)
+    if codes2.shape[0] == 0:
+        return out
+    with torch.cuda.device(codes2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_probe_planes_part", _ptr(shard), ctypes.c_int64(wl),
+                ctypes.c_int64(lo), *_batch_args(codes2, valid_or_lengths,
+                                                 clean, length),
+                ctypes.c_int(k), ctypes.c_int(w), _ptr(out),
+                ctypes.c_void_p(stream))
+    probe_planes_part.launches += 1
+    return out
+
+
+probe_planes_part.launches = 0
 
 
 class PlaneSlots:

@@ -37,6 +37,14 @@ when long reads would make a batch's window keys exceed what the device
 budget per batch holds; where even the floor of STREAM_MIN_BATCH reads is too
 large, search_set takes the exact probe and search_multi_set declines.
 
+With a mesh (parallel/sharded.py: an explicit list of devices, repeats
+allowed) the engine runs commet_tpu's multi-device modes: ``dp`` replicates
+each partition's sorted index or plane set (built on the mesh's first
+device) and splits every search batch's rows over the mesh; ``plane`` shards
+every partition's planes on the word axis (no sorted index) and probes the
+whole batch on every shard. The amortized schedule declines with a mesh, so
+the driver takes the classic rounds, as commet_tpu's does.
+
 There is no CPU fallback: the engine runs on the device it is given.
 """
 
@@ -55,6 +63,7 @@ from commet_tpu_torch.core import keys, planes, stream
 from commet_tpu_torch.device import resolve_device, synchronize
 from commet_tpu_torch.io.reads import ReadSet
 from commet_tpu_torch.native import parser as native
+from commet_tpu_torch.parallel import sharded
 
 # reads per host batch of the exact fallback
 DEFAULT_BATCH = 4096
@@ -236,10 +245,18 @@ class Engine:
     index set and classifies query sets against it, with the reference's
     partitioning semantics. ``device`` is "cuda" (the CUDA kernels) or "cpu"
     (their plain PyTorch versions); "cuda" without a card raises. The route
-    settings are read from the environment when the engine is made."""
+    settings are read from the environment when the engine is made.
+
+    ``mesh`` (a sharded.Mesh of ``device``'s type, its first device the
+    engine's) runs the partitions over several devices in ``mesh_mode``
+    "dp" (the default where sharded.dp_fits(k)) or "plane" (the default
+    otherwise); ``batch`` must be a multiple of the mesh size. Counterpart
+    of commet_tpu's Engine(mesh=, mesh_mode=)."""
 
     def __init__(self, k: int, t: int, device, batch: int = DEFAULT_BATCH,
-                 max_kmer: Optional[int] = None):
+                 max_kmer: Optional[int] = None,
+                 mesh: Optional[sharded.Mesh] = None,
+                 mesh_mode: Optional[str] = None):
         if not 1 <= k <= keys.MAX_K:
             raise ValueError(f"k={k} unsupported: the port handles "
                              f"1 <= k <= {keys.MAX_K}")
@@ -247,6 +264,20 @@ class Engine:
         self.t = t
         self.device = resolve_device(device)
         self.batch = batch
+        self.mesh = mesh
+        self.mesh_mode = None
+        if mesh is not None:
+            if mesh.first.type != self.device.type:
+                raise ValueError(f"a mesh of {mesh.first.type} devices for "
+                                 f"an engine on {self.device}")
+            self.device = mesh.first
+            if batch % len(mesh) != 0:
+                raise ValueError("batch must divide evenly across the mesh")
+            if mesh_mode is None:
+                mesh_mode = "dp" if sharded.dp_fits(k, mesh.first) else "plane"
+            if mesh_mode not in ("dp", "plane"):
+                raise ValueError(f"mesh_mode {mesh_mode!r}: 'dp' or 'plane'")
+            self.mesh_mode = mesh_mode
         self.max_kmer = max_kmer_for(k) if max_kmer is None else max_kmer
         mode = os.environ.get("COMMET_TPU_STREAM", "1")
         self.stream_forced = mode == "force"
@@ -354,18 +385,22 @@ class Engine:
         return parts
 
     # ---------------------------------------------------------------- index
-    def _free_bytes(self) -> int:
-        """Device bytes free to allocate: the card's free memory plus what
-        PyTorch's allocator holds unused."""
-        free, _total = torch.cuda.mem_get_info(self.device)
-        return free + (torch.cuda.memory_reserved(self.device)
-                       - torch.cuda.memory_allocated(self.device))
+    def _free_bytes(self, device=None) -> int:
+        """Device bytes free to allocate on ``device`` (the engine's): the
+        card's free memory plus what PyTorch's allocator holds unused."""
+        device = self.device if device is None else device
+        free, _total = torch.cuda.mem_get_info(device)
+        return free + (torch.cuda.memory_reserved(device)
+                       - torch.cuda.memory_allocated(device))
 
     def serves_sorted(self, n_kmers: int) -> bool:
         """Whether a partition of ``n_kmers`` k-mers takes the sorted index
         (else the bit planes): COMMET_TPU_STREAM=force always, =0 never,
-        otherwise when its fill n_kmers / 2^k is at most stream_max_fill.
-        Counterpart of commet_tpu's per-partition _stream_serving."""
+        otherwise when its fill n_kmers / 2^k is at most stream_max_fill;
+        never in mesh plane mode. Counterpart of commet_tpu's per-partition
+        _stream_serving."""
+        if self.mesh_mode == "plane":
+            return False
         if self.stream_forced or self.stream_off:
             return self.stream_forced
         return n_kmers / float(2 ** self.k) <= self.stream_max_fill
@@ -387,30 +422,48 @@ class Engine:
                 "there, or lower max_kmer.")
 
     def _check_plane_memory(self) -> None:
+        """The planes fit each card they go to: the whole set on the
+        engine's card, or in plane mode its shards on each mesh device."""
         if self.device.type != "cuda":
             return
-        free = self._free_bytes()
-        need = planes.plane_bytes(self.k)
-        if need > free:
-            raise MemoryError(
-                f"the four bit planes of k={self.k} need {need} B; {free} B "
-                f"free on {self.device}")
+        need = {self.device: planes.plane_bytes(self.k)}
+        if self.mesh_mode == "plane":
+            share = planes.plane_bytes(self.k) // len(self.mesh)
+            need = {dev: share * self.mesh.devices.count(dev)
+                    for dev in self.mesh.distinct()}
+        for dev, n_bytes in need.items():
+            free = self._free_bytes(dev)
+            if n_bytes > free:
+                raise MemoryError(
+                    f"the four bit planes of k={self.k} need {n_bytes} B on "
+                    f"{dev}; {free} B free")
 
-    def build_planes(self, enc: EncodedSet, idx: np.ndarray) -> torch.Tensor:
+    def build_planes(self, enc: EncodedSet, idx: np.ndarray):
         """The partition's four-plane set from reads ``idx``: every complete
-        forward window set through planes.build_planes, batch by batch.
-        Counterpart of Engine.build_planes off the stream branch (the
-        per-batch and the bulk builds alike)."""
+        forward window set through planes.build_planes, batch by batch
+        ([4 * plane_words(k)] int32); with a mesh, replicated over it (dp),
+        or built as word shards by the ranged build kernel
+        (sharded.build_planes_sharded: plane mode). Counterpart of
+        Engine.build_planes off the stream branch (the per-batch and the
+        bulk builds alike)."""
         self._check_plane_memory()
-        out = planes.alloc_planes(self.k, self.device)
+        if self.mesh_mode == "plane":
+            out = sharded.alloc_planes_sharded(self.k, self.mesh)
+        else:
+            out = planes.alloc_planes(self.k, self.device)
         lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
         for _sl, c2, vd, ln, clean in self._batched_packed(
                 enc, idx, lpad, row_batch_size(STREAM_BATCH, wmax)):
-            planes.build_planes(out, self._up(c2),
-                                self._up(ln if clean else vd), clean, lpad,
-                                self.k)
+            aux = ln if clean else vd
+            if self.mesh_mode == "plane":
+                sharded.build_planes_sharded(out, c2, aux, clean, lpad)
+            else:
+                planes.build_planes(out, self._up(c2), self._up(aux), clean,
+                                    lpad, self.k)
+        if self.mesh_mode == "dp":
+            return sharded.replicate(out, self.mesh)
         return out
 
     def build_index(self, enc: EncodedSet, idx: np.ndarray,
@@ -435,7 +488,10 @@ class Engine:
             a, b = keys.index_keys(codes, self.k)
             ka.append(a)
             kb.append(b)
-        return stream.finalize_index(ka, kb)
+        sidx = stream.finalize_index(ka, kb)
+        if self.mesh is not None:  # dp: plane mode serves no sorted index
+            return sharded.replicate(sidx, self.mesh)
+        return sidx
 
     # --------------------------------------------------------------- search
     def search_set(self, sidx, enc: EncodedSet,
@@ -446,12 +502,14 @@ class Engine:
         Engine.search_set -> _search_stream_only; when the batch geometry
         cannot serve the reads, stream_batch_size is None, every read takes
         the exact probe). A plane set: the exact plane probe
-        (_search_planes)."""
+        (_search_planes). Replicas over a mesh (dp) or plane shards: the
+        same through parallel/sharded.py."""
         tags = np.zeros(len(idx), dtype=bool)
         lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
-        if isinstance(sidx, torch.Tensor):
+        if not (isinstance(sidx, stream.StreamIndex)
+                or isinstance(sidx, sharded.Replicas) and sidx.sorted_index):
             return self._search_planes(sidx, enc, idx, lpad, wmax)
         size = stream_batch_size(len(idx), wmax)
         if size is None:
@@ -460,7 +518,11 @@ class Engine:
         self._io_reset()
         for sl, c2, vd, ln, clean in self._batched_packed(
                 enc, idx, lpad, size):
-            if clean:
+            aux = ln if clean else vd
+            if isinstance(sidx, sharded.Replicas):
+                verdict = sharded.stream_search_step(
+                    sidx, c2, aux, clean, lpad, self.k, self.t, wmax)
+            elif clean:
                 verdict = stream.probe_stream_clean(
                     sidx, self._up(c2), self._up(ln), lpad, self.k, self.t,
                     wmax)
@@ -484,40 +546,55 @@ class Engine:
                                                      lpad, wmax)
         return tags
 
-    def _search_planes(self, pl: torch.Tensor, enc: EncodedSet,
-                       idx: np.ndarray, lpad: int, wmax: int) -> np.ndarray:
-        """Exact tags of reads ``idx`` against one plane set, both strands
-        in one probe per batch. Counterpart of Engine._search_cascade /
-        _search_full, whose TAGGED/UNTAGGED/AMBIG rounds end in these
-        tags."""
+    def _search_planes(self, pl, enc: EncodedSet, idx: np.ndarray,
+                       lpad: int, wmax: int) -> np.ndarray:
+        """Exact tags of reads ``idx`` against one plane set (or its
+        replicas, or its shards), both strands in one probe per batch.
+        Counterpart of Engine._search_cascade / _search_full, whose
+        TAGGED/UNTAGGED/AMBIG rounds end in these tags."""
         tags = np.zeros(len(idx), dtype=bool)
         pending = []  # (slice, device tags): fetched after dispatching
         self._io_reset()
         for sl, c2, vd, ln, clean in self._batched_packed(
                 enc, idx, lpad, row_batch_size(STREAM_BATCH, wmax)):
-            pending.append((sl, planes.probe_planes(
-                pl, self._up(c2), self._up(ln if clean else vd), clean,
-                lpad, self.k, self.t, wmax)))
+            aux = ln if clean else vd
+            if isinstance(pl, sharded.PlaneShards):
+                got = sharded.probe_planes_sharded(pl, c2, aux, clean, lpad,
+                                                   self.t, wmax)
+            elif isinstance(pl, sharded.Replicas):
+                got = sharded.dp_probe_planes(pl, c2, aux, clean, lpad,
+                                              self.k, self.t, wmax)
+            else:
+                got = planes.probe_planes(pl, self._up(c2), self._up(aux),
+                                          clean, lpad, self.k, self.t, wmax)
+            pending.append((sl, got))
         t_fetch = time.time()
         for sl, got in pending:
             tags[sl] = got.cpu().numpy()
         self._io_stash(time.time() - t_fetch)
         return tags
 
-    def _search_stream_fallback(self, sidx: stream.StreamIndex,
-                                enc: EncodedSet, rows_idx: np.ndarray,
-                                lpad: int, wmax: int) -> np.ndarray:
+    def _search_stream_fallback(self, sidx, enc: EncodedSet,
+                                rows_idx: np.ndarray, lpad: int,
+                                wmax: int) -> np.ndarray:
         """Exact tags of the stream's AMBIG residue through the four sorted
         value sets (every k <= 36: the keys are whole int64 values), in
-        batches of at most ``batch`` reads and stream_max_keys window keys."""
+        batches of at most ``batch`` reads and stream_max_keys window keys;
+        against replicas over a mesh, split over it
+        (sharded.stream_exact_step)."""
         tags = np.zeros(len(rows_idx), dtype=bool)
         size = row_batch_size(self.batch, wmax)
         for start in range(0, len(rows_idx), size):
             rows = rows_idx[start:start + size]
             c2, vd, _ln, _clean = enc.gather_packed(rows, lpad)
-            got = stream.probe_exact_sets(
-                sidx, self._up(keys.host_u32(c2)),
-                self._up(keys.host_u32(vd)), lpad, self.k, self.t, wmax)
+            c2, vd = keys.host_u32(c2), keys.host_u32(vd)
+            if isinstance(sidx, sharded.Replicas):
+                got = sharded.stream_exact_step(sidx, c2, vd, lpad, self.k,
+                                                self.t, wmax)
+            else:
+                got = stream.probe_exact_sets(sidx, self._up(c2),
+                                              self._up(vd), lpad, self.k,
+                                              self.t, wmax)
             tags[start:start + len(rows)] = got.cpu().numpy()
         return tags
 
@@ -605,12 +682,13 @@ class Engine:
                        ) -> Optional[ResidentIndex]:
         """Build every max_kmer partition of ``index_set`` as a resident
         StreamIndex (build_index per partition). Returns None, before any
-        device allocation, when k > RESIDENT_MAX_K, the resident bytes
+        device allocation, when the engine has a mesh, k > RESIDENT_MAX_K,
+        the resident bytes
         (INDEX_BYTES_PER_KMER per k-mer) exceed _resident_budget or a
         partition is above the fill gate (serves_sorted); the caller then
         takes the plane cohorts or the pairwise schedule. Counterpart of
         build_resident."""
-        if self.k > RESIDENT_MAX_K:
+        if self.mesh is not None or self.k > RESIDENT_MAX_K:
             return None
         t0 = time.time()
         enc = EncodedSet(index_set)
@@ -718,9 +796,12 @@ class Engine:
                               ) -> Optional[ResidentPlanes]:
         """Build every max_kmer partition of ``index_set`` as a resident
         four-plane set (build_planes per partition), for the plane cohorts.
-        Returns None, before any device allocation, when the plane bytes
+        Returns None, before any device allocation, when the engine has a
+        mesh or the plane bytes
         (plane_bytes(k) per partition) exceed _planes_budget. Counterpart of
         build_resident_planes."""
+        if self.mesh is not None:
+            return None
         t0 = time.time()
         enc = EncodedSet(index_set)
         elig = index_set.eligible()

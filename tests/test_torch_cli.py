@@ -4,9 +4,11 @@ bytes, .log counter lines and matrix CSV bytes must be identical."""
 
 import glob
 import os
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 from commet_tpu.cli import commet as jcommet
 from commet_tpu.cli import index_and_search as jias
@@ -114,11 +116,24 @@ def test_commet_driver_matches_jax(tmp_path):
     assert all(int(v) > 0 for v in plain[1].split(";")[1:])
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--devices", "all"]])
-def test_commet_unported_options_fail(tmp_path, capsys, flags):
-    """More than one card is not ported: --devices other than 1 exits
-    non-zero and names the ROADMAP."""
-    with pytest.raises(SystemExit) as exc:
-        tcommet.main([str(tmp_path / "sets.txt"), "--device", "cpu"] + flags)
-    assert exc.value.code != 0
-    assert "not yet ported (ROADMAP)" in capsys.readouterr().err
+@pytest.mark.parametrize("flags,error", [
+    (["--devices", "2", "--device", "cuda"], "no CUDA card"),
+    (["--devices", "0", "--device", "cpu"], "a count of at least 1"),
+])
+def test_commet_unported_options_fail(tmp_path, capsys, monkeypatch, flags,
+                                      error):
+    """The driver's refusals of --devices: two cards on a machine without a
+    card (no CPU takes over) and a count of 0 both exit non-zero, the
+    first through the CLI's entry point, before any file is written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("COMMET_TPU_DEVICES", raising=False)
+    argv = [str(tmp_path / "sets.txt"), "-o", str(tmp_path / "out")] + flags
+    monkeypatch.setattr(sys, "argv", ["commet"] + argv)
+    with pytest.raises((SystemExit, RuntimeError)) as exc:
+        tcommet.entry()
+    if exc.type is SystemExit:
+        assert exc.value.code != 0
+        assert error in capsys.readouterr().err
+    else:
+        assert error in str(exc.value)
+    assert not os.path.exists(tmp_path / "out")

@@ -1,6 +1,6 @@
 """The port stands alone: no file of commet_tpu_torch, and not
-chip_smoke.py, imports the JAX package (commet_tpu), checked on the source
-by an AST scan; a copy of commet_tpu_torch alone, with no commet_tpu beside it,
+chip_smoke.py, imports JAX or the JAX package (commet_tpu), checked on the
+source by an AST scan; a copy of commet_tpu_torch alone, with no commet_tpu beside it,
 runs the driver, filter_reads, compare_reads and bvop on the CPU and builds
 its native library inside itself; and the card tests import the port's read
 sets."""
@@ -16,9 +16,13 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+REJECTED = ("commet_tpu", "jax")
+
+
 def _reference_imports(path):
-    """(line, module) of every import of commet_tpu or commet_tpu.* in the
-    file, at any depth (module level or inside a function)."""
+    """(line, module) of every import of commet_tpu, jax or their
+    submodules in the file, at any depth (module level or inside a
+    function)."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     found = []
@@ -30,7 +34,8 @@ def _reference_imports(path):
         else:
             continue
         found += [(node.lineno, n) for n in names
-                  if n == "commet_tpu" or n.startswith("commet_tpu.")]
+                  if n in REJECTED or n.startswith(tuple(
+                      r + "." for r in REJECTED))]
     return found
 
 
@@ -38,6 +43,9 @@ def test_port_sources_import_no_reference():
     paths = glob.glob(os.path.join(REPO, "commet_tpu_torch", "**", "*.py"),
                       recursive=True)
     assert len(paths) > 15
+    for mod in ("sharded", "distributed"):
+        assert os.path.join(REPO, "commet_tpu_torch", "parallel",
+                            mod + ".py") in paths
     bad = {os.path.relpath(p, REPO): _reference_imports(p) for p in paths}
     assert {p: f for p, f in bad.items() if f} == {}
 
@@ -48,8 +56,9 @@ def test_chip_scripts_import_no_reference():
 
 
 def test_scan_finds_reference_imports(tmp_path):
-    """The scan itself: every form of import of commet_tpu is found, the
-    port's own modules and relative imports are not."""
+    """The scan itself: every form of import of commet_tpu and of jax is
+    found, the port's own modules, relative imports and names that only
+    begin alike (jaxlib_free) are not."""
     src = tmp_path / "m.py"
     src.write_text(textwrap.dedent("""
         import commet_tpu
@@ -59,18 +68,24 @@ def test_scan_finds_reference_imports(tmp_path):
         import commet_tpu_torch
         from . import sibling
 
+        import jaxlib_free
+
         def late():
             from commet_tpu.cli.util import guarded
+            import jax.numpy as jnp
+            from jax import lax
         """))
     assert [m for _line, m in _reference_imports(str(src))] == [
         "commet_tpu", "commet_tpu.io.bv", "commet_tpu.io",
-        "commet_tpu.cli.util"]
+        "commet_tpu.cli.util", "jax.numpy", "jax"]
 
 
 def test_card_tests_import_the_port_reads():
-    """tests/test_torch_gpu.py runs where commet_tpu may be absent: it and
-    the helpers it imports load no commet_tpu module at import time."""
-    for name in ("test_torch_gpu.py", "torch_helpers.py"):
+    """tests/test_torch_gpu.py and test_torch_gpu_mesh.py run where
+    commet_tpu and JAX may be absent: they and the helpers they import load
+    no module of either at import time."""
+    for name in ("test_torch_gpu.py", "test_torch_gpu_mesh.py",
+                 "torch_helpers.py"):
         with open(os.path.join(REPO, "tests", name)) as f:
             tree = ast.parse(f.read())
         top = [n for n in tree.body
@@ -78,8 +93,8 @@ def test_card_tests_import_the_port_reads():
         mods = [a.name for n in top if isinstance(n, ast.Import)
                 for a in n.names] + [n.module for n in top
                                      if isinstance(n, ast.ImportFrom)]
-        assert not [m for m in mods
-                    if m == "commet_tpu" or m.startswith("commet_tpu.")]
+        assert not [m for m in mods if m in REJECTED
+                    or m.startswith(tuple(r + "." for r in REJECTED))]
     with open(os.path.join(REPO, "tests", "test_torch_gpu.py")) as f:
         assert "from commet_tpu_torch.io.reads import ReadSet" in f.read()
 
