@@ -4,12 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --plane-kernels
     python3 chip_smoke.py --join-kernels
+    python3 chip_smoke.py --mesh-kernels
 
 With --plane-kernels it runs phases 1, 2 and 9's timed part only, with
---join-kernels phases 1, 2, 3 and 5's timed part only, and prints their
-figures as one JSON line. To time two versions of the kernels in turns on
-one card, run it in a checkout of each in one command (order: other, this,
-this, other); --join-kernels needs of the package only join_membership,
+--join-kernels phases 1, 2, 3 and 5's timed part only, with --mesh-kernels
+phases 1, 2 and 13.1, and prints their figures as one JSON line. To
+time two versions of the kernels in turns on one card, run it in a
+checkout of each in one command (order: other, this, this, other);
+--join-kernels needs of the package only join_membership,
 join_membership_multi, JoinSlots, their plain versions and finalize_index,
 so this script also runs on a checkout whose join has another design.
 Phases, each printing one line with its seconds:
@@ -17,8 +19,9 @@ Phases, each printing one line with its seconds:
   2. build: every hand-written kernel from commet_tpu_torch/core/csrc/
      (join.cu: commet_join, commet_join_multi; planes.cu:
      commet_build_planes, commet_probe_planes, commet_probe_planes_multi,
-     commet_build_planes_range, commet_probe_planes_part; filter.cu:
-     commet_class_counts), one nvcc per source, started together;
+     commet_build_planes_range, commet_probe_planes_part_a,
+     commet_probe_planes_part; filter.cu: commet_class_counts), one nvcc
+     per source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows), sorted and
@@ -109,23 +112,30 @@ Phases, each printing one line with its seconds:
  13. more than one device, in parts run where their data lives (a mesh of
      4 entries: distinct cards where the machine has them, else the one
      card repeated, whose shares then run one after another):
-     13.1 (after phase 9's edges) the ranged plane build at k = 33 of phase
-          9's first 65,536-read batch into 4 word ranges (1 GiB shards),
-          each equal to its plain version's and to its words of
-          commet_build_planes' planes, then all of phase 9's 4M reads; the
-          ranged probe of phase 9's probe batch against each range, masks
-          equal to the plain version's, sharded tags equal to
-          probe_planes'; the class counts of a dirty 65,536-read batch
-          equal to the plain version's and numpy's, then
-          filter_batch_device equal to the host filter; each kernel timed
-          by CUDA events beside its bound and its plain version;
+     13.1 (after phase 9's edges) the ranged plane build
+          (commet_build_planes_range) at k = 33 of phase 9's first
+          65,536-read batch into 4 word ranges (1 GiB shards), each equal
+          to its plain version's and to its words of commet_build_planes'
+          planes, timed on fresh batches with its atomics and distinct
+          sectors; then all of phase 9's 4M reads. The ranged probe of
+          phase 9's probe batch against each range: pass A, then pass
+          B/C/D given the merged A words, each equal to its plain version,
+          sharded tags equal to probe_planes'; each timed with its plane
+          loads and distinct sectors, beside the loads and sectors of the
+          one-pass design before it (every in-range word of every window)
+          and the bound that design's bytes give. The class counts of a
+          dirty 65,536-read batch equal to the plain version's and numpy's,
+          then filter_batch_device equal to the host filter; each kernel
+          timed by CUDA events per range launch beside its bound and its
+          plain version;
      13.2 (in phase 6's directory) set 2 against set 1 (1M reads, k = 32,
           sorted index) through Engine on the mesh (DP stream and DP exact)
           and alone: equal .bv bytes and counter line;
      13.3 (in phase 10's directory, after phase 11) set 2 against set 1
           (4M reads, k = 33, planes) with mesh_mode dp (replicated planes,
           split batches) and plane (4 word shards of 1 GiB: the ranged
-          build and probe kernels), each equal to the single-device call;
+          build and the probe's two passes), each equal to the
+          single-device call;
      13.4 (in phase 7's directory, after phase 12) the commet driver with a
           2-entry mesh engine takes the classic rounds and writes the
           classic run's files; with 2 or more cards, commet --devices 2 too;
@@ -138,10 +148,10 @@ Phases, each printing one line with its seconds:
      Each part prints its walls, launches and max_memory_allocated.
 Each main path (phases 6, 10, 11 and 12's --jobs run, 13.2 to 13.4's
 runs, 13.1's filter) runs with every kernel's launch count set to 0 just
-before it and read just after; the kernels line takes the ranged build and
-probe launches from 13.3's plane-mode run and the class counts' from
-13.1's filter_batch_device. At the end no module of JAX or of the JAX
-package (commet_tpu) may be loaded.
+before it and read just after; the kernels line takes the ranged build's
+and the probe passes' launches from 13.3's plane-mode run and the class
+counts' from 13.1's filter_batch_device. At the end no module of JAX or of
+the JAX package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -178,7 +188,8 @@ BUILD_REPLACES = "commet_tpu/core/kernels.py:716"
 PROBE_REPLACES = "commet_tpu/core/kernels.py:405"
 PROBE_MULTI_REPLACES = "commet_tpu/core/kernels.py:604"
 BUILD_RANGE_REPLACES = "commet_tpu/parallel/sharded.py:114"
-PROBE_PART_REPLACES = "commet_tpu/parallel/sharded.py:91"
+PROBE_PART_A_REPLACES = "commet_tpu/parallel/sharded.py:91"
+PROBE_PART_REPLACES = "commet_tpu/parallel/sharded.py:136"
 FILTER_SOURCE = "commet_tpu_torch/core/csrc/filter.cu"
 CLASS_COUNTS_REPLACES = "commet_tpu/core/kernels.py:831"
 # phase 13: mesh entries (word ranges, shares, key-range slices) and the
@@ -1696,19 +1707,44 @@ def _dirty_batch(device, seed: int, lpad: int):
     return (c2, vd, lens), on_card, host_counts.astype(np.int64)
 
 
+def _ranged_probe_addrs(pl, wk, k: int) -> dict:
+    """Word addresses, into the whole plane set ``pl``, of the ranged
+    probe's plane loads on window keys ``wk``, repeats kept: "a" pass A's
+    plane-A word of every complete window, "veto" pass B/C/D's B, C and D
+    words of the windows with A set (together what the result needs), and
+    "every" the one-pass design's, every word of every complete window
+    (each loaded by its shard)."""
+    import torch
+    from commet_tpu_torch.core import planes
+    pw = planes.plane_words(k)
+    ok = wk["ok"]
+    out = {"a": [], "veto": [], "every": []}
+    for s in ("f", "r"):
+        keys4 = planes.four_plane_keys(torch.where(ok, wk[s + "a"], 0),
+                                       torch.where(ok, wk[s + "b"], 0))
+        addr = [p * pw + (key >> 5) for p, key in enumerate(keys4)]
+        a_set = (pl[addr[0]].to(torch.int64) >> (keys4[0] & 31)) & 1 == 1
+        out["every"] += [a[ok] for a in addr]
+        out["a"].append(addr[0][ok])
+        out["veto"] += [a[ok & a_set] for a in addr[1:]]
+    return {name: torch.cat(x) for name, x in out.items()}
+
+
 def phase_mesh_kernels(device, gen_seed: int):
-    """Phase 13.1: the multi-device kernels against their plain versions.
-    The ranged build at k = 33 into 4 word ranges (1 GiB shards) of phase
-    9's first 65,536-read batch, each range equal to its plain version's and
-    to its words of commet_build_planes' planes; timed on fresh batches;
-    then every range and the whole set filled from phase 9's 4M reads. The
-    ranged probe of phase 9's probe batch against each range, masks equal to
-    the plain version's, the sharded tags equal to probe_planes'. The class
-    counts of a dirty 65,536-read batch equal to the plain version's and to
+    """Phase 13.1: the multi-device kernels against their plain versions,
+    beside their bounds (the bytes they must move at the HBM rate) and
+    their plain versions' ms, each ms by CUDA events per range launch.
+    Build: phase 9's first 65,536-read batch at k = 33 into 4 word ranges
+    (1 GiB shards) by commet_build_planes_range, each range equal to the
+    plain version's and to its words of commet_build_planes' planes, timed
+    on fresh batches; then every range and the whole set filled from phase
+    9's 4M reads. Probe of phase 9's probe batch against each range: pass A
+    and pass B/C/D equal to their plain versions, sharded tags equal to
+    probe_planes'; each timed with its plane loads and distinct sectors,
+    beside the one-pass design's loads, sectors and bound. The class counts
+    of a dirty 65,536-read batch equal to the plain version's and to
     numpy's; then filter_batch_device on it (the path the launch count
-    reads) equal to the host filter. Each kernel's ms by CUDA events per
-    launch, beside its bound (the bytes it must move at the HBM rate) and
-    its plain version's ms."""
+    reads) equal to the host filter."""
     import torch
     from commet_tpu_torch.core import filter as tfilter
     from commet_tpu_torch.core import keys, planes
@@ -1764,8 +1800,15 @@ def phase_mesh_kernels(device, gen_seed: int):
     # written); a range boundary is a multiple of 8 words, so no sector
     # straddles two
     batch_bytes = n * (lpad // 16) * 4 + n * 4
-    build_sectors = sum(_sectors(_build_addrs(b, lengths[:len(b)], lpad, k))
-                        for b in timed) // reps
+    build_entries = build_sectors = build_words = 0
+    for b in timed:
+        addrs = _build_addrs(b, lengths[:len(b)], lpad, k)
+        build_entries += addrs.numel()
+        build_sectors += _sectors(addrs)
+        build_words += torch.unique(addrs).numel()
+    build_entries //= reps
+    build_sectors //= reps
+    build_words //= reps
     build_bound = bound_ms((MESH_N * batch_bytes + 2 * SECTOR * build_sectors)
                            / MESH_N)
     t0 = time.perf_counter()
@@ -1781,48 +1824,80 @@ def phase_mesh_kernels(device, gen_seed: int):
 
     qc2 = _probe_batch(words, device, gen_seed, lpad)
     del words, batches
+    args = (qc2, lengths, True, lpad, k)
+    nwords = planes.window_words(wmax)
+    packed = torch.zeros((n, 2, nwords), dtype=torch.int32, device=device)
 
-    def part(d):
-        return planes.probe_planes_part(ps.shards[d], qc2, lengths, True,
-                                        lpad, k, d * wl, wl, wmax)
+    def part_a(d, out=None):
+        return planes.probe_planes_part_a(ps.shards[d], *args, d * wl, wl,
+                                          wmax, out)
 
-    def part_plain(d):
-        return planes.probe_planes_part_plain(ps.shards[d], qc2, lengths,
-                                              True, lpad, k, d * wl, wl,
-                                              wmax)
+    def veto(d, ahit, out=None):
+        return planes.probe_planes_part(ps.shards[d], *args, d * wl, wl,
+                                        wmax, ahit, out)
 
-    merged = None
+    ahit = None
     for d in range(MESH_N):
-        got, want = part(d), part_plain(d)
+        got = part_a(d)
+        want = planes.probe_planes_part_a_plain(ps.shards[d], *args, d * wl,
+                                                wl, wmax)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"ranged probe differs from its plain "
-                                 f"version in range {d} on "
-                                 f"{int((got != want).sum())} masks")
-        merged = got if merged is None else merged | got
+            raise AssertionError(f"ranged probe pass A differs from its "
+                                 f"plain version in range {d}")
+        ahit = got if ahit is None else ahit | got
+    vetoes = None
+    for d in range(MESH_N):
+        got = veto(d, ahit)
+        want = planes.probe_planes_part_plain(ps.shards[d], *args, d * wl,
+                                              wl, wmax, ahit)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ranged probe vetoes differ from their "
+                                 f"plain version in range {d}")
+        vetoes = got if vetoes is None else vetoes | got
+    member = planes.unpack_window_bits(ahit & ~vetoes, wmax)
     tags = sharded.probe_planes_sharded(ps, qc2, lengths, True, lpad, T, wmax)
     single = planes.probe_planes(whole, qc2, lengths, True, lpad, k, T, wmax)
     if not torch.equal(tags, single) or not bool(tags[:n // 3].all()):
         raise AssertionError("sharded tags differ from probe_planes' or miss "
                              "a read holding an indexed fragment")
-    members = int((merged == 15).sum())
-    part_ms = cuda_ms(lambda: [part(d) for d in range(MESH_N)], 10) / MESH_N
-    part_plain_ms = cuda_ms(lambda: [part_plain(d) for d in range(MESH_N)],
-                            2) / MESH_N
-    # per range: the batch read and the [n, 2, wmax] masks written once;
-    # together the ranges load each distinct sector of every complete
-    # window's four plane words, both strands, once
+    members = int(member.sum())
+
+    def per_range(fn, reps=10):
+        return cuda_ms(lambda: [fn(d) for d in range(MESH_N)], reps) / MESH_N
+
+    probe_ms = {
+        "a": per_range(lambda d: part_a(d, packed)),
+        "veto": per_range(lambda d: veto(d, ahit, packed)),
+        "sharded": cuda_ms(lambda: sharded.probe_planes_sharded(
+            ps, qc2, lengths, True, lpad, T, wmax), 10)}
+    probe_plain_ms = {
+        "a": per_range(lambda d: planes.probe_planes_part_a_plain(
+            ps.shards[d], *args, d * wl, wl, wmax), 2),
+        "veto": per_range(lambda d: planes.probe_planes_part_plain(
+            ps.shards[d], *args, d * wl, wl, wmax, ahit), 2)}
     wk = keys.window_keys(keys.unpack_codes_clean(qc2, lengths, lpad), k,
                           "both", wmax)
-    ok = wk["ok"]
-    addrs = torch.cat([p * w + (key[ok] >> 5) for s in ("f", "r")
-                       for p, key in enumerate(planes.four_plane_keys(
-                           wk[s + "a"], wk[s + "b"]))])
-    part_loads, part_sectors = addrs.numel(), _sectors(addrs)
-    del wk, ok, addrs, ps, whole
-    part_bound = bound_ms((MESH_N * (qc2.numel() * 4 + n * 4
-                                     + n * 2 * wmax)
-                           + SECTOR * part_sectors) / MESH_N)
+    addrs = _ranged_probe_addrs(whole, wk, k)
+    loads = {name: x.numel() for name, x in addrs.items()}
+    sectors = {name: _sectors(x) for name, x in addrs.items()}
+    sectors["needed"] = _sectors(torch.cat([addrs["a"], addrs["veto"]]))
+    del wk, addrs, ps, whole
+    # per range: the batch read once, and the packed words written (and
+    # read where a pass takes the merged A words; the one-pass design wrote
+    # a byte a window and strand); together the ranges load each distinct
+    # sector of the design's loads once
+    qbytes = qc2.numel() * 4 + n * 4
+    words_bytes = packed.numel() * 4
+
+    def part_bound(io_bytes, n_sectors):
+        return bound_ms((MESH_N * io_bytes + SECTOR * n_sectors) / MESH_N)
+
+    probe_bound = {
+        "a": part_bound(qbytes + words_bytes, sectors["a"]),
+        "veto": part_bound(qbytes + 2 * words_bytes, sectors["veto"]),
+        "every": part_bound(qbytes + n * 2 * wmax, sectors["every"])}
 
     host, (c2, vd, lens), want_counts = _dirty_batch(device, gen_seed + 2,
                                                      lpad)
@@ -1849,16 +1924,26 @@ def phase_mesh_kernels(device, gen_seed: int):
                                                                   keep_h):
         raise AssertionError(f"filter_batch_device {stats} (launches "
                              f"{cc_launches}) != the host filter {stats_h}")
+
+    def fig(ms, plain_ms, bound):
+        return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound}
+
     return {
-        "build_range": {"max_abs_err": 0, "ms": build_ms,
-                        "plain_ms": build_plain_ms, "bound_ms": build_bound},
-        "probe_part": {"max_abs_err": 0, "ms": part_ms,
-                       "plain_ms": part_plain_ms, "bound_ms": part_bound},
+        "build_range": fig(build_ms, build_plain_ms, build_bound),
+        "probe_part_a": fig(probe_ms["a"], probe_plain_ms["a"],
+                            probe_bound["a"]),
+        "probe_part": fig(probe_ms["veto"], probe_plain_ms["veto"],
+                          probe_bound["veto"]),
         "class_counts": {"max_abs_err": cc_err, "ms": cc_ms,
                          "plain_ms": cc_plain_ms, "bound_ms": cc_bound},
+        "build_entries": build_entries, "build_words": build_words,
         "build_sectors": build_sectors, "fill_s": fill_s,
-        "part_loads": part_loads, "part_sectors": part_sectors,
-        "members": members, "tagged": int(tags.sum()),
+        "two_pass_ms": probe_ms["a"] + probe_ms["veto"],
+        "two_pass_bound_ms": probe_bound["a"] + probe_bound["veto"],
+        "one_pass_bound_ms": probe_bound["every"],
+        "sharded_ms": probe_ms["sharded"], "loads": loads,
+        "sectors": sectors, "members": members, "tagged": int(tags.sum()),
         "filter_stats": stats, "class_counts_launches": cc_launches}
 
 
@@ -2076,7 +2161,8 @@ def _kernel_fns(stream, planes, tfilter):
     return (stream.join_membership, stream.join_membership_multi,
             planes.build_planes, planes.probe_planes,
             planes.probe_planes_multi, planes.build_planes_range,
-            planes.probe_planes_part, tfilter.class_counts_packed)
+            planes.probe_planes_part_a, planes.probe_planes_part,
+            tfilter.class_counts_packed)
 
 
 def zero_counts(stream, planes):
@@ -2128,6 +2214,46 @@ def _kernel_figures(fig: dict) -> str:
     return (f"kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, "
             f"bound {fig['bound_ms']:.4f} ms "
             f"({100 * fig['bound_ms'] / fig['ms']:.1f}% of bound)")
+
+
+def run_phase_mesh_kernels(device) -> dict:
+    """Phase 13.1: runs phase_mesh_kernels and logs its line."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mk = phase_mesh_kernels(device, 33)
+    loads, sectors = mk["loads"], mk["sectors"]
+
+    def probe(key, what):
+        return (f"{_kernel_figures(mk[key])} per range launch, "
+                f"{loads[what]} plane loads on {sectors[what]} distinct "
+                f"sectors over the {MESH_N} ranges")
+
+    log(f"phase 13.1 mesh kernels: k = {PLANE_K}, {MESH_N} word ranges; "
+        f"ranged build of one {PLANE_BATCH}-read batch equal to the plain "
+        f"version's and to commet_build_planes' planes, "
+        f"{mk['build_entries']} atomics ({mk['build_words']} distinct words, "
+        f"{mk['build_sectors']} distinct sectors) a batch, "
+        + _kernel_figures(mk["build_range"])
+        + f" per range launch; {PLANE_FILL_READS} reads built into the whole "
+        f"set and the ranges in {mk['fill_s']:.3f} s; probes of the probe "
+        f"batch equal to their plain versions, {mk['members']} member "
+        f"windows, sharded tags = probe_planes' ({mk['tagged']} tagged): "
+        f"pass A " + probe("probe_part_a", "a") + "; pass B/C/D "
+        + probe("probe_part", "veto")
+        + f"; two passes {mk['two_pass_ms']:.4f} ms a range (bound "
+        f"{mk['two_pass_bound_ms']:.4f} ms, {sectors['needed']} distinct "
+        f"sectors the result needs); the one-pass design's "
+        f"{loads['every']} plane loads on {sectors['every']} distinct "
+        f"sectors (bound {mk['one_pass_bound_ms']:.4f} ms a range); whole "
+        f"sharded probe {mk['sharded_ms']:.4f} ms; class counts of a dirty "
+        f"{PLANE_BATCH}-read batch equal to the plain version's and "
+        f"numpy's, " + _kernel_figures(mk["class_counts"])
+        + f"; filter_batch_device = the host filter {mk['filter_stats']} "
+        f"(class_counts launches {mk['class_counts_launches']}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return mk
 
 
 def _mesh_walls(pair: dict) -> str:
@@ -2197,9 +2323,11 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     plane_kernels_only = args == ["--plane-kernels"]
     join_kernels_only = args == ["--join-kernels"]
-    if args and not (plane_kernels_only or join_kernels_only):
-        print("usage: chip_smoke.py [--plane-kernels | --join-kernels]",
-              file=sys.stderr)
+    mesh_kernels_only = args == ["--mesh-kernels"]
+    if args and not (plane_kernels_only or join_kernels_only
+                     or mesh_kernels_only):
+        print("usage: chip_smoke.py [--plane-kernels | --join-kernels | "
+              "--mesh-kernels]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "commet_tpu_torch")):
@@ -2242,6 +2370,13 @@ def main(argv=None) -> int:
             "build", "probe", "multi", "singles_ms", "build_windows",
             "build_sectors", "probe_loads", "probe_sectors", "multi_loads",
             "multi_sectors", "yardsticks", "tagged")}))
+        return 0
+
+    if mesh_kernels_only:
+        mk = run_phase_mesh_kernels(device)
+        log(json.dumps({key: val for key, val in mk.items()
+                        if key not in ("filter_stats",
+                                       "class_counts_launches")}))
         return 0
 
     kern = run_phase_kernel(device, rng)
@@ -2388,27 +2523,7 @@ def main(argv=None) -> int:
         f"dirty and clean batches of reads shorter than k, 100 and 300 bp "
         f"({cases} grouped cases) ({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    mk = phase_mesh_kernels(device, 33)
-    log(f"phase 13.1 mesh kernels: k = {PLANE_K}; ranged build of one "
-        f"{PLANE_BATCH}-read batch into {MESH_N} word ranges equal to its "
-        f"plain version's and to commet_build_planes' planes, "
-        + _kernel_figures(mk["build_range"])
-        + f" per range launch, {mk['build_sectors']} distinct sectors a "
-        f"batch; {PLANE_FILL_READS} reads built into the whole set and the "
-        f"ranges in {mk['fill_s']:.3f} s; ranged probe masks of the probe "
-        f"batch equal to the plain version's, {mk['members']} member "
-        f"windows, sharded tags = probe_planes' ({mk['tagged']} tagged), "
-        + _kernel_figures(mk["probe_part"])
-        + f" per range launch, {mk['part_loads']} plane loads on "
-        f"{mk['part_sectors']} distinct sectors; class counts of a dirty "
-        f"{PLANE_BATCH}-read batch equal to the plain version's and "
-        f"numpy's, " + _kernel_figures(mk["class_counts"])
-        + f"; filter_batch_device = the host filter {mk['filter_stats']} "
-        f"(class_counts launches {mk['class_counts_launches']}); "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
-        f"({time.perf_counter() - t0:.3f} s)")
+    mk = run_phase_mesh_kernels(device)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2459,6 +2574,7 @@ def main(argv=None) -> int:
         mesh_launches = pair["plane"][3]
         if not pair["dp"][3].get("probe_planes") or min(
                 mesh_launches.get("build_planes_range", 0),
+                mesh_launches.get("probe_planes_part_a", 0),
                 mesh_launches.get("probe_planes_part", 0)) == 0:
             raise AssertionError(f"mesh launches {pair}")
         log(f"phase 13.3 mesh planes: set2 in set1 of phase 10 (k = "
@@ -2501,6 +2617,8 @@ def main(argv=None) -> int:
         for name, source, replaces, launched, key in (
             ("build_planes_range", PLANES_SOURCE, BUILD_RANGE_REPLACES,
              mesh_launches["build_planes_range"], "build_range"),
+            ("probe_planes_part_a", PLANES_SOURCE, PROBE_PART_A_REPLACES,
+             mesh_launches["probe_planes_part_a"], "probe_part_a"),
             ("probe_planes_part", PLANES_SOURCE, PROBE_PART_REPLACES,
              mesh_launches["probe_planes_part"], "probe_part"),
             ("class_counts", FILTER_SOURCE, CLASS_COUNTS_REPLACES,

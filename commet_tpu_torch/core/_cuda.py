@@ -55,11 +55,14 @@ _SIGNATURES = {
                "commet_build_planes_range": [ctypes.c_void_p, ctypes.c_int64,
                                              ctypes.c_int64, *_BATCH,
                                              ctypes.c_int, ctypes.c_void_p],
-               "commet_probe_planes_part": [ctypes.c_void_p, ctypes.c_int64,
-                                            ctypes.c_int64, *_BATCH,
-                                            ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p,
-                                            ctypes.c_void_p]},
+               "commet_probe_planes_part_a": [
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, *_BATCH,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p],
+               "commet_probe_planes_part": [
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, *_BATCH,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]},
     "filter": {"commet_class_counts": [ctypes.c_void_p, ctypes.c_int64,
                                        ctypes.c_void_p, ctypes.c_int64,
                                        ctypes.c_void_p, ctypes.c_int64,

@@ -32,13 +32,20 @@
 //     word lies in the shard's range; here the build kernel's atomics, each
 //     made only where its word lies in the range (a template flag, so the
 //     single-set build compiles as before);
-//   - commet_probe_planes_part: _search's _local_membership and the psum of
-//     the per-plane hits (sharded.py:91-99,136-158): per (read, strand,
-//     window) a 4-bit mask of the planes whose bit is set within the range;
-//     the caller ORs the shards' masks (a word lives on one shard), ANDs the
-//     four bits and counts. A warp per read, a lane per window: every lane
-//     loads its window's in-range words together; no greedy count, so every
-//     window of the range is loaded (the bound counts each needed load).
+//   - _search's _local_membership and the psum of the per-plane hits
+//     (sharded.py:91-99,136-158), in two passes over windows packed 32 to
+//     a word ([b, 2, ceil(wmax / 32)], bit w % 32 of word w / 32):
+//     commet_probe_planes_part_a, pass A: the windows whose plane-A word
+//     lies in the range and whose A bit is set; the caller ORs the shards'
+//     words (a word lives on one shard), which is exactly "A is set";
+//     commet_probe_planes_part, pass B/C/D: given the merged A words, a
+//     lane whose window has A set loads its in-range B, C and D words
+//     together and vetoes the window where one of those bits is clear;
+//     lanes without A load nothing. A member is A & ~(OR of the vetoes).
+//     The ranged probe has no greedy skip (the count needs every shard's
+//     bits), so its loads set much of its time: plane A first means B, C
+//     and D are loaded only where A hits, about a tenth of the windows; the
+//     passes write their words with fire-and-forget atomicOr (or_word).
 //
 // Input batch: codes2 [b, nw2] words, base p at bits 2*(p%16) of word p/16
 // (A=0 C=1 G=2 T=3); then either (clean) lengths [b] int32, base p valid iff
@@ -369,43 +376,103 @@ __global__ void probe_multi_kernel(const int64_t* __restrict__ plane_ptrs,
     probe_warp<G>(pl, ns, pw, bt, row, k, t, wmax, o + row, bt.b);
 }
 
-// Bit p of the result: plane p's bit of its key is set and its word lies in
-// the shard's range [lo, lo + wl) (the shard holds plane p at p * wl).
-__device__ __forceinline__ uint32_t part_mask(const uint32_t* __restrict__ sh,
-                                              int64_t lo, int64_t wl,
-                                              uint64_t a, uint64_t b) {
-  const uint64_t key[4] = {a, b, a ^ b, a | b};
-  uint32_t mask = 0;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const uint64_t rel = (key[p] >> 5) - (uint64_t)lo;
-    if (rel < (uint64_t)wl)
-      mask |= ((__ldg(sh + p * wl + rel) >> (key[p] & 31)) & 1u) << p;
-  }
-  return mask;
+// A key's word in one plane of a shard, loaded where it lies in [lo, lo +
+// wl), else `absent`, beside its bit's mask: the bit is tested only after a
+// warp has issued all its loads.
+struct ShardBit {
+  uint32_t word;
+  uint32_t mask;
+  __device__ __forceinline__ bool set() const { return (word & mask) != 0; }
+};
+
+__device__ __forceinline__ ShardBit load_in_shard(
+    const uint32_t* __restrict__ plane, int64_t lo, int64_t wl, uint64_t key,
+    uint32_t absent) {
+  const uint64_t rel = (key >> 5) - (uint64_t)lo;
+  return {rel < (uint64_t)wl ? __ldg(plane + rel) : absent,
+          1u << (key & 31)};
 }
 
-// out: [b, 2, wmax] masks, strand 0 forward, 1 reverse complement; a window
-// that is not complete (or lies past the read) gets 0.
-__global__ void probe_part_kernel(const uint32_t* __restrict__ shard,
-                                  int64_t wl, int64_t lo, Batch bt, int k,
-                                  int wmax, uint8_t* __restrict__ out) {
+// Sets bits v of *p: a reduction no lane waits for, made only where v has
+// a bit (the caller's words start at 0 and are only ever ORed into). A
+// plain read-modify-write by lane 0 puts a round trip to memory on every
+// chunk's path, which measured slower on an H100 (PERF.md).
+__device__ __forceinline__ void or_word(uint32_t* p, uint32_t v) {
+  if (v) atomicOr(p, v);
+}
+
+// Pass A: out[(row * 2 + strand) * nwords + w / 32] |= bit w % 32 for each
+// complete window w < wmax whose plane-A word lies in the shard and whose A
+// bit is set. A warp per read, a lane per window, a chunk of 32 windows at
+// a time; lane 0 ORs the chunk's ballots into out, so the shards of one
+// device accumulate in one tensor.
+__global__ void probe_part_a_kernel(const uint32_t* __restrict__ shard,
+                                    int64_t wl, int64_t lo, Batch bt, int k,
+                                    int wmax, int nwords,
+                                    uint32_t* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const uint64_t m = low_mask(k);
   for (int64_t row = first_row(); row < bt.b; row += row_stride()) {
     const int end = row_end(bt, row, wmax + k - 1);
-    uint8_t* fwd = out + row * 2 * (int64_t)wmax;
-    for (int base = 0; base < wmax; base += 32) {
-      const int w = base + lane;
+    uint32_t* o = out + row * 2 * (int64_t)nwords;
+    for (int c = 0; c < nwords; ++c) {
       uint64_t xa = 0, xb = 0;
-      uint32_t mf = 0, mr = 0;
-      if (w < wmax && window_bits(bt, row, end, w, k, xa, xb)) {
-        mf = part_mask(shard, lo, wl, forward_key(xa, k), forward_key(xb, k));
-        mr = part_mask(shard, lo, wl, ~xa & m, ~xb & m);
+      bool hf = false, hr = false;
+      if (window_bits(bt, row, end, c * 32 + lane, k, xa, xb)) {
+        hf = load_in_shard(shard, lo, wl, forward_key(xa, k), 0u).set();
+        hr = load_in_shard(shard, lo, wl, ~xa & m, 0u).set();
       }
-      if (w < wmax) {
-        fwd[w] = (uint8_t)mf;
-        fwd[wmax + w] = (uint8_t)mr;
+      const uint32_t bf = __ballot_sync(kFull, hf);
+      const uint32_t br = __ballot_sync(kFull, hr);
+      if (lane == 0) {
+        or_word(o + c, bf);
+        or_word(o + nwords + c, br);
+      }
+    }
+  }
+}
+
+// A window with A set is vetoed when one of its B, C, D words lies in the
+// shard with its bit clear; the three loads go out together.
+__device__ __forceinline__ bool bcd_vetoed(const uint32_t* __restrict__ sh,
+                                           int64_t lo, int64_t wl,
+                                           uint64_t a, uint64_t b) {
+  const ShardBit x = load_in_shard(sh + wl, lo, wl, b, ~0u);
+  const ShardBit y = load_in_shard(sh + 2 * wl, lo, wl, a ^ b, ~0u);
+  const ShardBit z = load_in_shard(sh + 3 * wl, lo, wl, a | b, ~0u);
+  return !(x.set() && y.set() && z.set());
+}
+
+// Pass B/C/D: out |= the vetoes (bcd_vetoed), packed as pass A's, of the
+// windows whose bit in ahit (the merged pass-A words) is set. A chunk with
+// no A hit on either strand is skipped by the whole warp, and a lane
+// without A loads nothing.
+__global__ void probe_part_veto_kernel(const uint32_t* __restrict__ shard,
+                                       int64_t wl, int64_t lo, Batch bt,
+                                       int k, int wmax, int nwords,
+                                       const uint32_t* __restrict__ ahit,
+                                       uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const uint64_t m = low_mask(k);
+  for (int64_t row = first_row(); row < bt.b; row += row_stride()) {
+    const int end = row_end(bt, row, wmax + k - 1);
+    const int64_t at = row * 2 * (int64_t)nwords;
+    for (int c = 0; c < nwords; ++c) {
+      const uint32_t af = ahit[at + c], ar = ahit[at + nwords + c];
+      if ((af | ar) == 0) continue;  // warp-uniform
+      const bool cf = (af >> lane) & 1u, cr = (ar >> lane) & 1u;
+      bool vf = false, vr = false;
+      uint64_t xa = 0, xb = 0;
+      if ((cf || cr) && window_bits(bt, row, end, c * 32 + lane, k, xa, xb)) {
+        vf = cf && bcd_vetoed(shard, lo, wl, forward_key(xa, k),
+                              forward_key(xb, k));
+        vr = cr && bcd_vetoed(shard, lo, wl, ~xa & m, ~xb & m);
+      }
+      const uint32_t bf = __ballot_sync(kFull, vf);
+      const uint32_t br = __ballot_sync(kFull, vr);
+      if (lane == 0) {
+        or_word(out + at + c, bf);
+        or_word(out + at + nwords + c, br);
       }
     }
   }
@@ -462,19 +529,37 @@ extern "C" int commet_build_planes_range(void* shard, int64_t wl, int64_t lo,
   return (int)cudaGetLastError();
 }
 
-// shard as above; out: [b, 2, wmax] uint8 plane masks.
+// Pass A of one shard; out: [b, 2, ceil(wmax / 32)] uint32 words, ORed into.
+extern "C" int commet_probe_planes_part_a(const void* shard, int64_t wl,
+                                          int64_t lo, const void* codes2,
+                                          int64_t nw2, const void* aux,
+                                          int64_t nwv, int clean, int64_t b,
+                                          int length, int k, int wmax,
+                                          void* out, void* stream) {
+  if (b <= 0 || wmax <= 0) return 0;
+  probe_part_a_kernel<<<grid_for(b, kWarps), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)shard, wl, lo,
+      make_batch(codes2, nw2, aux, nwv, clean, b, length), k, wmax,
+      (wmax + 31) / 32, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// Pass B/C/D of one shard given the merged pass-A words ahit; out: vetoes
+// packed as pass A's, ORed into.
 extern "C" int commet_probe_planes_part(const void* shard, int64_t wl,
                                         int64_t lo, const void* codes2,
                                         int64_t nw2, const void* aux,
                                         int64_t nwv, int clean, int64_t b,
                                         int length, int k, int wmax,
-                                        void* out, void* stream) {
-  if (b <= 0) return 0;
-  probe_part_kernel<<<grid_for(b, kWarps), kThreads, 0,
-                      (cudaStream_t)stream>>>(
+                                        const void* ahit, void* out,
+                                        void* stream) {
+  if (b <= 0 || wmax <= 0) return 0;
+  probe_part_veto_kernel<<<grid_for(b, kWarps), kThreads, 0,
+                           (cudaStream_t)stream>>>(
       (const uint32_t*)shard, wl, lo,
       make_batch(codes2, nw2, aux, nwv, clean, b, length), k, wmax,
-      (uint8_t*)out);
+      (wmax + 31) / 32, (const uint32_t*)ahit, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

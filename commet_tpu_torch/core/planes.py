@@ -22,8 +22,11 @@ updates the planes in place (commet_tpu's build returns a new array).
 
 A shard of a plane set sharded on the word axis (parallel/sharded.py) holds
 words [lo, lo + wl) of each plane as its own [4 * wl] int32 tensor, plane p
-at [p * wl, (p + 1) * wl); ``build_planes_range`` and ``probe_planes_part``
-are the build and the per-plane probe of one shard.
+at [p * wl, (p + 1) * wl). Its build is ``build_planes_range``; its probe,
+over windows packed 32 to an int32 word ([B, 2, window_words(wmax)], bit
+w % 32 of word w // 32, strand 0 forward), is ``probe_planes_part_a`` (pass
+A: the A hits in range) then ``probe_planes_part`` (pass B/C/D: the vetoes
+of windows whose merged A bit is set).
 """
 
 from __future__ import annotations
@@ -329,66 +332,182 @@ def probe_planes(planes: torch.Tensor, codes2, valid_or_lengths, clean: bool,
 probe_planes.launches = 0
 
 
-def probe_planes_part_plain(shard: torch.Tensor, codes2, valid_or_lengths,
-                            clean: bool, length: int, k: int, lo: int,
-                            wl: int, wmax: Optional[int] = None
-                            ) -> torch.Tensor:
-    """[B, 2, W] uint8 plane masks in plain PyTorch: window keys, then per
-    plane and strand the bit of its key (_plane_member's gather, plane by
-    plane), set in bit p where the key's word lies in [lo, lo + wl); 0 for
-    a window that is not complete."""
+def window_words(wmax: int) -> int:
+    """int32 words of one strand's packed window bits: ceil(wmax / 32)."""
+    return (wmax + 31) // 32
+
+
+def pack_window_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., W] bool -> [..., window_words(W)] int32 bit patterns, bit w % 32
+    of word w // 32; the bits past W are 0."""
+    lead, w = bits.shape[:-1], bits.shape[-1]
+    nw = window_words(w)
+    padded = torch.zeros((*lead, nw * 32), dtype=torch.int64,
+                         device=bits.device)
+    padded[..., :w] = bits
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (padded.view(*lead, nw, 32) << shifts).sum(dim=-1)
+    return torch.where(words >= SIGN, words - (1 << 32), words).to(
+        torch.int32)
+
+
+def unpack_window_bits(words: torch.Tensor, wmax: int) -> torch.Tensor:
+    """[..., window_words(wmax)] int32 -> [..., wmax] bool, through the
+    words' bytes (little-endian: byte j of a word holds its bits 8j ..
+    8j + 7), a byte a bit."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    bits = (words.contiguous().view(torch.uint8)[..., None] >> shifts) & 1
+    return bits.view(torch.bool).reshape(*words.shape[:-1], -1)[..., :wmax]
+
+
+def _part_bits(shard: torch.Tensor, codes2, valid_or_lengths, clean: bool,
+               length: int, k: int, lo: int, wl: int, wmax: Optional[int]):
+    """ok [B, W] and, per strand (forward, reverse complement) and plane,
+    (word in [lo, lo + wl) of a complete window, its bit set) [B, W] bool:
+    _plane_member's gathers, plane by plane, against one shard."""
     wk = keys.window_keys(_unpack(codes2, valid_or_lengths, clean, length),
                           k, "both", _wmax(length, k, wmax))
     ok = wk["ok"]
-    out = []
+    strands = []
     for s in ("f", "r"):
         a = torch.where(ok, wk[s + "a"], 0)
         b = torch.where(ok, wk[s + "b"], 0)
-        mask = torch.zeros(ok.shape, dtype=torch.uint8, device=ok.device)
+        bits = []
         for p, key in enumerate(four_plane_keys(a, b)):
             word, bit = plane_addr(key)
             word = word - lo
             mine = (word >= 0) & (word < wl) & ok
             got = (shard[word.clamp(0, wl - 1) + p * wl].to(torch.int64)
-                   >> bit) & 1
-            mask |= ((got == 1) & mine).to(torch.uint8) << p
-        out.append(mask)
-    return torch.stack(out, dim=1)
+                   >> bit) & 1 == 1
+            bits.append((mine, got))
+        strands.append(bits)
+    return ok, strands
+
+
+def probe_planes_part_a_plain(shard: torch.Tensor, codes2, valid_or_lengths,
+                              clean: bool, length: int, k: int, lo: int,
+                              wl: int, wmax: Optional[int] = None
+                              ) -> torch.Tensor:
+    """Pass A in plain PyTorch: [B, 2, window_words(W)] int32, the bit of
+    each complete window whose plane-A word lies in [lo, lo + wl) and whose
+    A bit is set."""
+    ok, strands = _part_bits(shard, codes2, valid_or_lengths, clean, length,
+                             k, lo, wl, wmax)
+    return pack_window_bits(torch.stack([bits[0][0] & bits[0][1]
+                                         for bits in strands], dim=1))
+
+
+def probe_planes_part_plain(shard: torch.Tensor, codes2, valid_or_lengths,
+                            clean: bool, length: int, k: int, lo: int,
+                            wl: int, wmax: Optional[int],
+                            ahit: torch.Tensor) -> torch.Tensor:
+    """Pass B/C/D in plain PyTorch: [B, 2, window_words(W)] int32 vetoes of
+    the windows whose bit in ``ahit`` (the merged pass-A words) is set and
+    one of whose B, C, D words lies in [lo, lo + wl) with its bit clear."""
+    ok, strands = _part_bits(shard, codes2, valid_or_lengths, clean, length,
+                             k, lo, wl, wmax)
+    veto = torch.stack([torch.stack([mine & ~got for mine, got in
+                                     bits[1:]]).any(dim=0)
+                        for bits in strands], dim=1)
+    return pack_window_bits(veto & unpack_window_bits(ahit, ok.shape[1]))
+
+
+def _check_window_words(fn: str, name: str, x: torch.Tensor, b: int, w: int,
+                        device: torch.device) -> None:
+    _check_int32(fn, name, x, 3, device)
+    if tuple(x.shape) != (b, 2, window_words(w)):
+        raise ValueError(f"{fn}: {name} {tuple(x.shape)}, expected "
+                         f"{(b, 2, window_words(w))}")
+
+
+def _window_words_out(fn: str, out: Optional[torch.Tensor], codes2,
+                      w: int) -> torch.Tensor:
+    """``out`` checked, or zeroed [B, 2, window_words(w)] int32."""
+    b = codes2.shape[0]
+    if out is None:
+        return torch.zeros((b, 2, window_words(w)), dtype=torch.int32,
+                           device=codes2.device)
+    _check_window_words(fn, "out", out, b, w, codes2.device)
+    return out
+
+
+def probe_planes_part_a(shard: torch.Tensor, codes2, valid_or_lengths,
+                        clean: bool, length: int, k: int, lo: int, wl: int,
+                        wmax: Optional[int] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pass A of the ranged probe against one shard (``shard`` [4 * wl]
+    int32, words [lo, lo + wl) of each plane): for read b, strand s (0
+    forward, 1 reverse complement) and window w < W (wmax, by default
+    length - k + 1), bit w % 32 of word [b, s, w // 32] is set when the
+    window is complete, its plane-A word lies in the range and its A bit is
+    set. ORed into ``out`` ([B, 2, window_words(W)] int32) where given, so
+    the shards of one device accumulate; a word lives on one shard, so the
+    OR over all shards is "A is set". Counterpart of the plane-A part of
+    commet_tpu's sharded._local_membership and its psum: a CUDA tensor runs
+    csrc/planes.cu (commet_probe_planes_part_a, counted in
+    ``probe_planes_part_a.launches``), a CPU tensor runs
+    probe_planes_part_a_plain."""
+    fn = "probe_planes_part_a"
+    _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
+    _check_shard(fn, shard, k, lo, wl, codes2.device)
+    w = _wmax(length, k, wmax)
+    out = _window_words_out(fn, out, codes2, w)
+    if codes2.shape[0] == 0:
+        return out
+    if codes2.device.type == "cpu":
+        out |= probe_planes_part_a_plain(shard, codes2, valid_or_lengths,
+                                         clean, length, k, lo, wl, w)
+        return out
+    if codes2.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    with torch.cuda.device(codes2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_probe_planes_part_a", _ptr(shard),
+                ctypes.c_int64(wl), ctypes.c_int64(lo),
+                *_batch_args(codes2, valid_or_lengths, clean, length),
+                ctypes.c_int(k), ctypes.c_int(w), _ptr(out),
+                ctypes.c_void_p(stream))
+    probe_planes_part_a.launches += 1
+    return out
+
+
+probe_planes_part_a.launches = 0
 
 
 def probe_planes_part(shard: torch.Tensor, codes2, valid_or_lengths,
                       clean: bool, length: int, k: int, lo: int, wl: int,
-                      wmax: Optional[int] = None) -> torch.Tensor:
-    """Plane masks [B, 2, W] uint8 of a packed batch against one shard of a
-    plane set sharded on the word axis (``shard`` [4 * wl] int32, words
-    [lo, lo + wl) of each plane): for read b, strand s (0 forward, 1 reverse
-    complement) and window w < W (wmax, by default length - k + 1), bit p is
-    set when the window is complete, its plane-p key's word lies in the
-    range and that bit is set. A word lives on one shard, so the OR of all
-    shards' masks is 15 exactly where the window is a member. Counterpart of
-    commet_tpu's sharded._local_membership: a CUDA tensor runs
-    csrc/planes.cu (commet_probe_planes_part, counted in
-    ``probe_planes_part.launches``), a CPU tensor runs
-    probe_planes_part_plain."""
+                      wmax: Optional[int], ahit: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pass B/C/D of the ranged probe against one shard, packed as
+    probe_planes_part_a's and ORed into ``out`` where given: given
+    ``ahit``, the merged pass-A words of the batch, bit w is a veto of a
+    window whose A bit is set and one of whose B, C, D words lies in the
+    range with its bit clear; a window whose A bit is clear loads nothing,
+    and a window's three loads go out together. The members are
+    ahit & ~(OR of every shard's vetoes). Counterpart of _local_membership's
+    B, C, D part and its psum: a CUDA tensor runs csrc/planes.cu
+    (commet_probe_planes_part, counted in ``probe_planes_part.launches``),
+    a CPU tensor runs probe_planes_part_plain."""
     fn = "probe_planes_part"
     _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
     _check_shard(fn, shard, k, lo, wl, codes2.device)
-    if codes2.device.type == "cpu":
-        return probe_planes_part_plain(shard, codes2, valid_or_lengths, clean,
-                                       length, k, lo, wl, wmax)
-    if codes2.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {codes2.device}")
     w = _wmax(length, k, wmax)
-    out = torch.empty((codes2.shape[0], 2, w), dtype=torch.uint8,
-                      device=codes2.device)
+    _check_window_words(fn, "ahit", ahit, codes2.shape[0], w, codes2.device)
+    out = _window_words_out(fn, out, codes2, w)
     if codes2.shape[0] == 0:
         return out
+    if codes2.device.type == "cpu":
+        out |= probe_planes_part_plain(shard, codes2, valid_or_lengths, clean,
+                                       length, k, lo, wl, w, ahit)
+        return out
+    if codes2.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {codes2.device}")
     with torch.cuda.device(codes2.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch("commet_probe_planes_part", _ptr(shard), ctypes.c_int64(wl),
                 ctypes.c_int64(lo), *_batch_args(codes2, valid_or_lengths,
                                                  clean, length),
-                ctypes.c_int(k), ctypes.c_int(w), _ptr(out),
+                ctypes.c_int(k), ctypes.c_int(w), _ptr(ahit), _ptr(out),
                 ctypes.c_void_p(stream))
     probe_planes_part.launches += 1
     return out

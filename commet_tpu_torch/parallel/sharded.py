@@ -15,9 +15,9 @@ where commet_tpu builds jitted ``shard_map``s over a ``jax.sharding.Mesh``:
     device's inputs (the join kernel, the plane kernels, the exact probe);
     the merges are PyTorch ops on the mesh's first device: the concatenation
     of the shares' rows (DP), the max of the slices' join verdicts
-    (key-range-sharded index), the OR of the shards' plane masks and of the
-    slices' exact hits (commet_tpu's psum over a word that lives on one
-    shard, and over runs that straddle a cut);
+    (key-range-sharded index), the OR of the shards' packed plane-A hits and
+    vetoes and of the slices' exact hits (commet_tpu's psum over a word that
+    lives on one shard, and over runs that straddle a cut);
   - there is no row or SENTINEL padding: a share, a slice or a shard keeps
     its own length.
 
@@ -406,29 +406,50 @@ def build_planes_sharded(ps: PlaneShards, codes2, aux, clean: bool,
     return ps
 
 
+def _or_merge(parts: Dict[torch.device, torch.Tensor],
+              first: torch.device) -> torch.Tensor:
+    """The OR of per-device tensors, on ``first``."""
+    merged = None
+    for x in parts.values():
+        x = x.to(first)
+        merged = x if merged is None else merged | x
+    return merged
+
+
 def probe_planes_sharded(ps: PlaneShards, codes2, aux, clean: bool,
                          length: int, t: int,
                          wmax: Optional[int] = None) -> torch.Tensor:
     """Tags [B] bool of a packed batch against a sharded plane set, on the
-    mesh's first device: every shard's device runs the ranged probe kernel
-    (planes.probe_planes_part) over the whole batch, the 4-bit masks are
-    OR-merged (per device, then on the first: a word lives on one shard, so
-    this is commet_tpu's psum), a window is a member where all four bits are
-    set, and either strand's greedy count reaching t tags the read.
-    Counterpart of build_search_step's search_fn."""
-    batch = _batch_on(ps.mesh, codes2, aux)
-    masks: Dict[torch.device, torch.Tensor] = {}
-    for d, (dev, shard) in enumerate(zip(ps.mesh.devices, ps.shards)):
-        m = planes.probe_planes_part(shard, *batch[dev], clean, length, ps.k,
-                                     d * ps.wl, ps.wl, wmax)
-        masks[dev] = m if dev not in masks else masks[dev] | m
-    merged = None
-    for m in masks.values():
-        m = m.to(ps.mesh.first)
-        merged = m if merged is None else merged | m
-    member = merged == 15
-    return (greedy.greedy_ge(member[:, 0], ps.k, t)
-            | greedy.greedy_ge(member[:, 1], ps.k, t))
+    mesh's first device, in two passes over windows packed 32 to a word.
+    Pass A: every shard's device runs planes.probe_planes_part_a over the
+    whole batch (the shards of one device OR into one tensor), and the
+    OR over devices (a word lives on one shard: commet_tpu's psum) is
+    "A is set", sent back to every device. Pass B/C/D: every shard runs
+    planes.probe_planes_part on the windows with A set, vetoing those with
+    an in-range B, C or D bit clear; the vetoes OR-merge the same way. A
+    window is a member where A is set and no shard vetoed it, and either
+    strand's greedy count reaching t tags the read. Counterpart of
+    build_search_step's search_fn."""
+    mesh, k = ps.mesh, ps.k
+    w = planes._wmax(length, k, wmax)
+    batch = _batch_on(mesh, codes2, aux)
+    ranges = [(dev, shard, d * ps.wl)
+              for d, (dev, shard) in enumerate(zip(mesh.devices, ps.shards))]
+    hits: Dict[torch.device, torch.Tensor] = {}
+    for dev, shard, lo in ranges:
+        hits[dev] = planes.probe_planes_part_a(
+            shard, *batch[dev], clean, length, k, lo, ps.wl, w, hits.get(dev))
+    ahit = _or_merge(hits, mesh.first)
+    ahit_on = {dev: ahit.to(dev, non_blocking=True) for dev in hits}
+    vetoes: Dict[torch.device, torch.Tensor] = {}
+    for dev, shard, lo in ranges:
+        vetoes[dev] = planes.probe_planes_part(
+            shard, *batch[dev], clean, length, k, lo, ps.wl, w, ahit_on[dev],
+            vetoes.get(dev))
+    member = planes.unpack_window_bits(
+        ahit & ~_or_merge(vetoes, mesh.first), w)
+    return (greedy.greedy_ge(member[:, 0], k, t)
+            | greedy.greedy_ge(member[:, 1], k, t))
 
 
 def full_pair_step(ps: PlaneShards, index_batch, query_batch, t: int):

@@ -1,9 +1,10 @@
 """Card-only tests of the port's multi-device code: the ranged plane build
-(commet_build_planes_range), the ranged plane probe
-(commet_probe_planes_part) and the class counts (commet_class_counts)
-against their plain PyTorch versions, and the engine on a mesh of the card
-repeated four times against the engine on the card alone. Each skips
-without a CUDA card; exact equality throughout. Imports no JAX:
+(commet_build_planes_range), the ranged plane probe's two passes
+(commet_probe_planes_part_a, commet_probe_planes_part) and the class counts
+(commet_class_counts) against their plain PyTorch versions, and the engine
+on a mesh of the card repeated four times against the engine on the card
+alone. Each skips without a CUDA card; exact equality throughout. Imports
+no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu_mesh.py
@@ -50,9 +51,10 @@ def _batches(rng, k, device):
 @pytest.mark.parametrize("k", [15, 21, 33])
 def test_ranged_plane_kernels_match_plain_on_card(cuda_device, k):
     """Four ranges of the ranged build reassemble to commet_build_planes'
-    planes and equal the plain range build; the ranged probe's masks equal
-    the plain version's, and their OR over the ranges is 15 exactly at the
-    windows the single-set probe counts (the tags of probe_planes)."""
+    planes and equal the plain range build. Per range, pass A and pass
+    B/C/D (given the merged A words) equal their plain versions; A &
+    ~vetoes is the membership, and the sharded tags on the card repeated
+    four times equal probe_planes' on the whole set."""
     rng = np.random.default_rng(70 + k)
     index, query = _batches(rng, k, cuda_device)
     n = 4
@@ -74,21 +76,28 @@ def test_ranged_plane_kernels_match_plain_on_card(cuda_device, k):
     assert torch.equal(ps.assembled(), whole)
     for c2, aux, is_clean, length in query:
         wmax = length - k + 1
-        merged = None
+        args = (c2, aux, is_clean, length, k)
+        ahit = None
         for d, shard in enumerate(ps.shards):
-            got = tplanes.probe_planes_part(shard, c2, aux, is_clean, length,
-                                            k, d * wl, wl, wmax)
-            want = tplanes.probe_planes_part_plain(
-                shard, c2, aux, is_clean, length, k, d * wl, wl, wmax)
-            assert torch.equal(got, want)
-            merged = got if merged is None else merged | got
+            got = tplanes.probe_planes_part_a(shard, *args, d * wl, wl, wmax)
+            assert torch.equal(got, tplanes.probe_planes_part_a_plain(
+                shard, *args, d * wl, wl, wmax))
+            ahit = got if ahit is None else ahit | got
+        veto = None
+        for d, shard in enumerate(ps.shards):
+            got = tplanes.probe_planes_part(shard, *args, d * wl, wl, wmax,
+                                            ahit)
+            assert torch.equal(got, tplanes.probe_planes_part_plain(
+                shard, *args, d * wl, wl, wmax, ahit))
+            veto = got if veto is None else veto | got
+        member = tplanes.unpack_window_bits(ahit & ~veto, wmax)
+        assert member.any()
         tags = sharded.probe_planes_sharded(ps, c2, aux, is_clean, length, 2,
                                             wmax)
         single = tplanes.probe_planes(whole, c2, aux, is_clean, length, k, 2,
                                       wmax)
         assert torch.equal(tags, single)
         assert int(single.sum()) > 50
-        assert (merged == 15).any()
 
 
 @pytest.mark.gpu
