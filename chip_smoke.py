@@ -5,15 +5,20 @@
     python3 chip_smoke.py --plane-kernels
     python3 chip_smoke.py --join-kernels
     python3 chip_smoke.py --mesh-kernels
+    python3 chip_smoke.py --class-counts
+    python3 chip_smoke.py --default-fill
 
 With --plane-kernels it runs phases 1, 2 and 9's timed part only, with
 --join-kernels phases 1, 2, 3 and 5's timed part only, with --mesh-kernels
-phases 1, 2 and 13.1, and prints their figures as one JSON line. To
-time two versions of the kernels in turns on one card, run it in a
-checkout of each in one command (order: other, this, this, other);
---join-kernels needs of the package only join_membership,
-join_membership_multi, JoinSlots, their plain versions and finalize_index,
-so this script also runs on a checkout whose join has another design.
+phases 1, 2 and 13.1's plane kernels, with --class-counts phases 1, 2 and
+13.1's class counts, with --default-fill phases 1, 2 and 14, and prints
+their figures as one JSON line. To time two versions of the kernels in
+turns on one card, run it in a checkout of each in one command (order:
+other, this, this, other); --join-kernels needs of the package only
+join_membership, join_membership_multi, JoinSlots, their plain versions and
+finalize_index, and --class-counts only class_counts_packed, its plain
+version, filter_batch_device and filter_reads_counts, so this script also
+runs on a checkout whose kernels have another design.
 Phases, each printing one line with its seconds:
   1. card: the GPU's name and power limit (nvidia-smi) and torch's name;
   2. build: every hand-written kernel from commet_tpu_torch/core/csrc/
@@ -123,11 +128,14 @@ Phases, each printing one line with its seconds:
           sharded tags equal to probe_planes'; each timed with its plane
           loads and distinct sectors, beside the loads and sectors of the
           one-pass design before it (every in-range word of every window)
-          and the bound that design's bytes give. The class counts of a
-          dirty 65,536-read batch equal to the plain version's and numpy's,
-          then filter_batch_device equal to the host filter; each kernel
-          timed by CUDA events per range launch beside its bound and its
-          plain version;
+          and the bound that design's bytes give; each timed by CUDA
+          events per range launch beside its bound and its plain version.
+          The class counts of a dirty 65,536-read batch equal to the plain
+          version's and numpy's, then filter_batch_device equal to the host
+          filter; of 4M dirty reads made on the card equal to the plain
+          version's; at both sizes the kernel's own ms from torch.profiler's
+          device events beside the wrapper's ms a call (CUDA events), the
+          plain version's and the bound;
      13.2 (in phase 6's directory) set 2 against set 1 (1M reads, k = 32,
           sorted index) through Engine on the mesh (DP stream and DP exact)
           and alone: equal .bv bytes and counter line;
@@ -146,12 +154,34 @@ Phases, each printing one line with its seconds:
           key-range slices; set 2's first 65,536 reads through the sharded
           stream and exact steps give the single join path's tags.
      Each part prints its walls, launches and max_memory_allocated.
-Each main path (phases 6, 10, 11 and 12's --jobs run, 13.2 to 13.4's
-runs, 13.1's filter) runs with every kernel's launch count set to 0 just
-before it and read just after; the kernels line takes the ranged build's
-and the probe passes' launches from 13.3's plane-mode run and the class
-counts' from 13.1's filter_batch_device. At the end no module of JAX or of
-the JAX package (commet_tpu) may be loaded.
+ 14. COMMET's default partition (after phase 10's directory is gone): two
+     sets of 14.7M reads x 100 bp made as phase 10 makes its sets (set 2's
+     even reads hold 66 bp N-free fragments of set 1's reads), about 3.5 GB
+     of fasta in a temporary directory deleted after the phase; the port's
+     index_and_search CLI (-k 33 -t 2) with set 2 against set 1: 999.6M
+     k-mers less the N reads', one partition at 11.6% fill (at least 11%
+     required), so the planes; the wall, the pair-search rate, the split
+     (parse, index, search, host pack, dispatch wait, the rest), the peak
+     and the fill; every fragment read tagged, every chance tag a member
+     of set 1's planes built again by commet_build_planes under the plain
+     probe and a 65,536-read sample of the untagged reads not, the chance
+     tags beside their expectation from the planes. Then set 2's first 2M
+     reads against set 1 through Engine with COMMET_TPU_PROFILE (from its
+     Chrome trace the card's busy share and top device operations), with
+     prefetch and with COMMET_TPU_PREFETCH=0, equal tags. The kernels at
+     11.6%: the fill of one default partition (14.7M random reads) timed,
+     phase 9's probe batch through probe_planes and the grouped probe at
+     S = 3 against their plain versions beside their bounds, plane loads
+     split into A and B/C/D; the B/C/D loads a cascade (K7) could skip and
+     torch.sort of plane A's 999.6M int32 word addresses in chunks of 2^27
+     (the least a sorted build, K9, spends a plane), each against its rule.
+Each main path (phases 6, 10, 11, 14's CLI call and 12's --jobs run, 13.2
+to 13.4's runs, 13.1's filter) runs with every kernel's launch count set
+to 0 just before it and read just after; the kernels line takes the
+ranged build's and the probe passes' launches from 13.3's plane-mode run
+and the class counts' from 13.1's filter_batch_device, and the class
+counts' ms from torch.profiler at 65,536 reads. At the end no module of
+JAX or of the JAX package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
 this script, it exits non-zero before printing any result.
@@ -201,6 +231,19 @@ PLANE_K = 33
 PLANE_BATCH = 65536
 PLANE_FILL_READS = 4_000_000
 PLANE_SET_READS = 4_000_000
+# commet_tpu's cascade verifies the V leftmost and V rightmost A hits of a
+# strand first, V = 8 at fills of 2-15% (commet_tpu/engine/engine.py:1471-1479)
+CASCADE_V = 8
+# phase 14: COMMET's default partition, one pair at k = 33: 68 windows a
+# 100 bp read, 14.7M x 68 = 999.6M k-mers, one partition under the 1e9 cap
+# (11.6% of 2^33); the trace's query set; commet_tpu's bulk-build chunk at
+# k >= 32 (commet_tpu/engine/engine.py:689)
+DEFAULT_FILL_READS = 14_700_000
+TRACE_READS = 2_000_000
+SORT_CHUNK = 1 << 27
+# reads of the class counts' large batch (phase 13.1): 288 MB at 128
+# positions, where the bytes, not the launch, set the bound
+CLASS_COUNT_READS = 4 << 20
 # the plane kernels' edge shapes (phase 9): k, t and slot counts
 EDGE_K = (15, 21, 31, 33)
 EDGE_T = (1, 2, 17)
@@ -794,13 +837,20 @@ def _build_addrs(c2, lengths, length: int, k: int):
                       enumerate(planes.four_plane_keys(a, b))])
 
 
-def _probe_addrs(pl, c2, lengths, length: int, k: int, t: int, wmax: int):
-    """Word addresses, into ``pl``, of the plane loads the sequential probe
-    needs on these N-free reads, repeats kept: per strand, a plane-A load
-    for each window it reaches (complete, at or past the greedy skip,
-    before the count reaches t) and B, C, D loads for each of those whose
-    A bit is set; the reverse strand only for reads whose forward count
-    stays below t."""
+def _probe_loads(pl, c2, lengths, length: int, k: int, t: int, wmax: int,
+                 v: int = CASCADE_V) -> dict:
+    """The plane loads the sequential probe needs on these N-free reads
+    against ``pl``: per strand, a plane-A load for each window it reaches
+    (complete, at or past the greedy skip, before the count reaches t) and
+    B, C, D loads for each of those whose A bit is set; the reverse strand
+    only for reads whose forward count stays below t. Returns their word
+    addresses, repeats kept ("addrs"), the counts "a" and "bcd",
+    "skippable": the B/C/D loads at A hits past the ``v`` leftmost
+    and the ``v`` rightmost A hits of their strand (among its complete
+    windows: what commet_tpu's cascade verifies first, so the only loads
+    a cascade could skip), and "a_hits": the A hits among all complete
+    windows, both strands (plain torch ops, on the card or the CPU). The
+    addresses keep the order strand by strand, plane by plane."""
     import torch
     from commet_tpu_torch.core import keys, planes
     wk = keys.window_keys(keys.unpack_codes_clean(c2, lengths, length), k,
@@ -810,6 +860,7 @@ def _probe_addrs(pl, c2, lengths, length: int, k: int, t: int, wmax: int):
     pw = planes.plane_words(k)
     counting = torch.ones(n, dtype=torch.bool, device=ok.device)
     addrs = []
+    n_a = n_bcd = skippable = a_hits = 0
     for s in ("f", "r"):
         a = torch.where(ok, wk[s + "a"], 0)
         b = torch.where(ok, wk[s + "b"], 0)
@@ -828,34 +879,43 @@ def _probe_addrs(pl, c2, lengths, length: int, k: int, t: int, wmax: int):
             allow = torch.where(got, w + k, allow)
             live &= cnt < t
         counting &= cnt < t
+        hits = hit_a.to(torch.int64)
+        left = torch.cumsum(hits, dim=1) - hits
+        right = hits.sum(dim=1, keepdim=True) - left - hits
+        loaded = reached & hit_a
+        skippable += 3 * int((loaded & (left >= v) & (right >= v)).sum())
+        a_hits += int(hits.sum())
+        n_a += int(reached.sum())
+        n_bcd += 3 * int(loaded.sum())
         for p, key in enumerate(planes.four_plane_keys(a, b)):
-            addrs.append(p * pw + (key[reached if p == 0 else
-                                       reached & hit_a] >> 5))
-    return torch.cat(addrs)
+            addrs.append(p * pw + (key[reached if p == 0 else loaded] >> 5))
+    return {"addrs": torch.cat(addrs), "a": n_a, "bcd": n_bcd,
+            "skippable": skippable, "a_hits": a_hits}
 
 
-def _plane_reads(device, gen_seed: int, lpad: int):
-    """Phase 9's indexed reads: PLANE_FILL_READS random N-free 100 bp reads
-    as [n, lpad / 16] int32 code words, from a torch generator seeded with
+def _plane_reads(device, gen_seed: int, lpad: int,
+                 n_reads: int = PLANE_FILL_READS):
+    """Phase 9's indexed reads: ``n_reads`` random N-free 100 bp reads as
+    [n, lpad / 16] int32 code words, from a torch generator seeded with
     ``gen_seed``, and the generator."""
     import torch
     gen = torch.Generator(device=device)
     gen.manual_seed(gen_seed)
-    words = torch.randint(-2 ** 31, 2 ** 31, (PLANE_FILL_READS, lpad // 16),
+    words = torch.randint(-2 ** 31, 2 ** 31, (n_reads, lpad // 16),
                           dtype=torch.int32, device=device, generator=gen)
     return words, gen
 
 
 def _probe_batch(words, device, gen_seed: int, lpad: int):
     """Phase 9's probe batch: PLANE_BATCH random reads, a third holding a
-    2k bp fragment of an indexed read (N-free: lengths carry the validity),
-    as code words on the card."""
+    2k bp fragment of one of the indexed reads ``words`` (N-free: lengths
+    carry the validity), as code words on the card."""
     import torch
     n, k = PLANE_BATCH, PLANE_K
     rng = np.random.default_rng(gen_seed)
     qcodes = rng.integers(0, 4, (n, READ_LEN), dtype=np.uint8)
     third = n // 3
-    donors = rng.integers(0, PLANE_FILL_READS, third)
+    donors = rng.integers(0, len(words), third)
     dcodes = _unpack_codes(words[torch.from_numpy(donors).to(device)]
                            .cpu().numpy().view(np.uint32), READ_LEN)
     frag = 2 * k
@@ -950,7 +1010,7 @@ def phase_plane_kernels(device, gen_seed: int):
     # the batch read once, the tags written once, and every distinct plane
     # sector of the loads the probe needs read once
     batch_bytes = qc2.numel() * 4 + n * 4
-    probe_addrs = _probe_addrs(kern, qc2, lengths, lpad, k, T, wmax)
+    probe_addrs = _probe_loads(kern, qc2, lengths, lpad, k, T, wmax)["addrs"]
     probe_loads, probe_sectors = probe_addrs.numel(), _sectors(probe_addrs)
     yard.update(_gather_yardsticks(kern, probe_addrs, gen))
     del probe_addrs
@@ -990,7 +1050,7 @@ def phase_plane_kernels(device, gen_seed: int):
     singles_ms = cuda_ms(singles, 10)
     multi_loads = multi_sectors = 0
     for pl in slots.planes:  # distinct sectors per plane set
-        addrs = _probe_addrs(pl, qc2, lengths, lpad, k, T, wmax)
+        addrs = _probe_loads(pl, qc2, lengths, lpad, k, T, wmax)["addrs"]
         multi_loads += addrs.numel()
         multi_sectors += _sectors(addrs)
     return {
@@ -1741,12 +1801,8 @@ def phase_mesh_kernels(device, gen_seed: int):
     9's 4M reads. Probe of phase 9's probe batch against each range: pass A
     and pass B/C/D equal to their plain versions, sharded tags equal to
     probe_planes'; each timed with its plane loads and distinct sectors,
-    beside the one-pass design's loads, sectors and bound. The class counts
-    of a dirty 65,536-read batch equal to the plain version's and to
-    numpy's; then filter_batch_device on it (the path the launch count
-    reads) equal to the host filter."""
+    beside the one-pass design's loads, sectors and bound."""
     import torch
-    from commet_tpu_torch.core import filter as tfilter
     from commet_tpu_torch.core import keys, planes
     from commet_tpu_torch.parallel import sharded
     k, n, lpad = PLANE_K, PLANE_BATCH, 128
@@ -1899,32 +1955,6 @@ def phase_mesh_kernels(device, gen_seed: int):
         "veto": part_bound(qbytes + 2 * words_bytes, sectors["veto"]),
         "every": part_bound(qbytes + n * 2 * wmax, sectors["every"])}
 
-    host, (c2, vd, lens), want_counts = _dirty_batch(device, gen_seed + 2,
-                                                     lpad)
-    got = tfilter.class_counts_packed(c2, vd, lens, lpad)
-    want = tfilter.class_counts_packed_plain(c2, vd, lens, lpad)
-    torch.cuda.synchronize()
-    cc_err = int((got - want).abs().max())
-    if not torch.equal(got, want) or not np.array_equal(
-            got.cpu().numpy(), want_counts):
-        raise AssertionError("class counts kernel differs from its plain "
-                             "version or from numpy")
-    cc_ms = cuda_ms(lambda: tfilter.class_counts_packed(c2, vd, lens, lpad),
-                    20)
-    cc_plain_ms = cuda_ms(lambda: tfilter.class_counts_packed_plain(
-        c2, vd, lens, lpad), 5)
-    cc_bound = bound_ms(c2.numel() * 4 + vd.numel() * 4 + n * 4 + n * 5 * 4)
-    tfilter.class_counts_packed.launches = 0
-    kw = {"min_size": 60, "max_n": 0, "min_shannon": 1.9}
-    keep, stats = tfilter.filter_batch_device(*host, lpad, device=device, **kw)
-    cc_launches = tfilter.class_counts_packed.launches
-    keep_h, stats_h = tfilter.filter_reads_counts(
-        want_counts, host[2].astype(np.int64), **kw)
-    if cc_launches == 0 or stats != stats_h or not np.array_equal(keep,
-                                                                  keep_h):
-        raise AssertionError(f"filter_batch_device {stats} (launches "
-                             f"{cc_launches}) != the host filter {stats_h}")
-
     def fig(ms, plain_ms, bound):
         return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound}
@@ -1935,16 +1965,683 @@ def phase_mesh_kernels(device, gen_seed: int):
                             probe_bound["a"]),
         "probe_part": fig(probe_ms["veto"], probe_plain_ms["veto"],
                           probe_bound["veto"]),
-        "class_counts": {"max_abs_err": cc_err, "ms": cc_ms,
-                         "plain_ms": cc_plain_ms, "bound_ms": cc_bound},
         "build_entries": build_entries, "build_words": build_words,
         "build_sectors": build_sectors, "fill_s": fill_s,
         "two_pass_ms": probe_ms["a"] + probe_ms["veto"],
         "two_pass_bound_ms": probe_bound["a"] + probe_bound["veto"],
         "one_pass_bound_ms": probe_bound["every"],
         "sharded_ms": probe_ms["sharded"], "loads": loads,
-        "sectors": sectors, "members": members, "tagged": int(tags.sum()),
-        "filter_stats": stats, "class_counts_launches": cc_launches}
+        "sectors": sectors, "members": members, "tagged": int(tags.sum())}
+
+
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over ``reps`` calls of fn after one warm-up call, from torch.profiler's
+    device events (the kernel's own time, without the calls' host work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            total_us += (getattr(evt, "device_time_total", None)
+                         or evt.cuda_time_total)
+            count += evt.count
+    if count != reps:
+        raise AssertionError(f"torch.profiler saw {count} device events of "
+                             f"{name} for {reps} calls")
+    return total_us / count / 1e3
+
+
+def _dirty_batch_on_card(device, seed: int, n: int, lpad: int):
+    """``n`` reads of 50-100 random bases, 1% of the bases N, made on the
+    card: (codes2, valid, lengths) int32 tensors."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    c2 = torch.randint(-2 ** 31, 2 ** 31, (n, lpad // 16), dtype=torch.int32,
+                       device=device, generator=gen)
+    lens = torch.randint(READ_LEN // 2, READ_LEN + 1, (n,), dtype=torch.int32,
+                         device=device, generator=gen)
+    pos = torch.arange(lpad, device=device)
+    shifts = torch.arange(32, device=device, dtype=torch.int64)
+    vd = torch.empty((n, lpad // 32), dtype=torch.int32, device=device)
+    for start in range(0, n, 1 << 20):
+        sl = slice(start, min(n, start + (1 << 20)))
+        bits = (pos < lens[sl, None]) & (torch.rand(
+            (sl.stop - start, lpad), device=device, generator=gen) > 0.01)
+        vd[sl] = (bits.view(-1, lpad // 32, 32).to(torch.int64)
+                  << shifts).sum(dim=2).to(torch.int32)
+    return c2, vd, lens
+
+
+def phase_class_counts(device, gen_seed: int) -> dict:
+    """The class counts (commet_class_counts) of a dirty 65,536-read batch
+    (phase 13.1's, 128 positions) equal to the plain version's and to
+    numpy's, then filter_batch_device on it (the path the launch count
+    reads) equal to the host filter; and of 4M dirty reads made on the card
+    equal to the plain version's. At both sizes the kernel's own ms
+    (kernel_ms: torch.profiler's device time), the wrapper's ms per call
+    (CUDA events around back-to-back calls: shape checks, allocation and
+    the launch included), the plain version's and the bound (the batch read
+    once and the counts written once at the HBM rate)."""
+    import torch
+    from commet_tpu_torch.core import filter as tfilter
+    lpad, big = 128, CLASS_COUNT_READS
+    host, (c2, vd, lens), want_counts = _dirty_batch(device, gen_seed + 2,
+                                                     lpad)
+    got = tfilter.class_counts_packed(c2, vd, lens, lpad)
+    want = tfilter.class_counts_packed_plain(c2, vd, lens, lpad)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want) or not np.array_equal(
+            got.cpu().numpy(), want_counts):
+        raise AssertionError("class counts kernel differs from its plain "
+                             "version or from numpy")
+    tfilter.class_counts_packed.launches = 0
+    kw = {"min_size": 60, "max_n": 0, "min_shannon": 1.9}
+    keep, stats = tfilter.filter_batch_device(*host, lpad, device=device, **kw)
+    launches = tfilter.class_counts_packed.launches
+    keep_h, stats_h = tfilter.filter_reads_counts(
+        want_counts, host[2].astype(np.int64), **kw)
+    if launches == 0 or stats != stats_h or not np.array_equal(keep,
+                                                               keep_h):
+        raise AssertionError(f"filter_batch_device {stats} (launches "
+                             f"{launches}) != the host filter {stats_h}")
+    figs = {}
+    for size, batch in ((PLANE_BATCH, (c2, vd, lens)),
+                        (big, _dirty_batch_on_card(device, gen_seed + 3, big,
+                                                   lpad))):
+        if size == big and not torch.equal(
+                tfilter.class_counts_packed(*batch, lpad),
+                tfilter.class_counts_packed_plain(*batch, lpad)):
+            raise AssertionError(f"class counts kernel differs from its "
+                                 f"plain version on {size} reads")
+
+        def call(batch=batch):
+            return tfilter.class_counts_packed(*batch, lpad)
+
+        def plain(batch=batch):
+            return tfilter.class_counts_packed_plain(*batch, lpad)
+
+        figs[size] = {
+            "max_abs_err": err,
+            "ms": kernel_ms(call, "class_counts_kernel", 20),
+            "wrapper_ms": cuda_ms(call, 20),
+            "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": bound_ms(sum(x.numel() * 4 for x in batch)
+                                 + size * 5 * 4)}
+        torch.cuda.empty_cache()
+    return {"batch": figs[PLANE_BATCH], "large": figs[big],
+            "large_reads": big, "filter_stats": stats,
+            "launches": launches}
+
+
+def _class_counts_line(cc: dict) -> str:
+    parts = []
+    for key, reads in (("batch", PLANE_BATCH), ("large", cc["large_reads"])):
+        fig = cc[key]
+        parts.append(
+            f"{reads} reads: kernel {fig['ms']:.4f} ms (torch.profiler), "
+            f"wrapper {fig['wrapper_ms']:.4f} ms a call, plain "
+            f"{fig['plain_ms']:.4f} ms, bound {fig['bound_ms']:.4f} ms "
+            f"({100 * fig['bound_ms'] / fig['ms']:.1f}% of bound)")
+    return "; ".join(parts)
+
+
+def _plane_fills(pl, k: int):
+    """Share of set bits in each of the four planes of ``pl``."""
+    from commet_tpu_torch.core import planes
+    w = planes.plane_words(k)
+    return [_plane_fill(pl[p * w:(p + 1) * w], k) for p in range(4)]
+
+
+def _chance_tags(rates, n_reads: int, k: int) -> float:
+    """Reads of ``n_reads`` random 100 bp reads a four-plane set tags at
+    t = 2 by chance, where a random window finds its bit set in each plane
+    at these ``rates``: a window passes with probability p = their product
+    (the four bits taken as independent); a strand counts two when a pass
+    follows its first at least k windows on; a read is tagged when either
+    strand does."""
+    p = float(np.prod(rates))
+    w = READ_LEN - k + 1
+    q = sum((1 - p) ** i * p * (1 - (1 - p) ** max(0, w - i - k))
+            for i in range(w))
+    return n_reads * (1 - (1 - q) ** 2)
+
+
+def make_pair(rng, tmp: str, n_reads: int, frag: int):
+    """Two fasta sets made as phase 10 makes its sets: set 2's even reads
+    hold ``frag`` bp N-free fragments of random set-1 reads; 1% of each
+    set's reads carry one N, drawn among the reads that neither hold nor
+    give a fragment. Writes set1.fa, set2.fa and set2_cut.fa (set 2's first
+    TRACE_READS reads); returns the two sets' [n_reads, 100] codes."""
+    sets = [rng.integers(0, 4, (n_reads, READ_LEN), dtype=np.uint8)
+            for _ in range(2)]
+    even = np.arange(0, n_reads, 2)
+    _counts, donors = _implant(rng, sets, 1, 0, even, np.arange(n_reads),
+                               frag)
+    used = [np.zeros(n_reads, dtype=bool) for _ in sets]
+    used[1][even] = used[0][donors] = True
+    del donors
+    for s, u in zip(sets, used):
+        rows = rng.choice(np.nonzero(~u)[0], n_reads // 100, replace=False)
+        s[rows, rng.integers(0, READ_LEN, len(rows))] = 4
+    for i, s in enumerate(sets):
+        _write_fasta(os.path.join(tmp, f"set{i + 1}.fa"), s)
+    _write_fasta(os.path.join(tmp, "set2_cut.fa"), sets[1][:TRACE_READS])
+    return sets
+
+
+def _pack_on_card(codes, device, lpad: int):
+    """[b, L] uint8 numpy codes (4 = N) -> (codes2, valid) int32 words on
+    the card, padded to ``lpad`` positions."""
+    import torch
+    b, length = codes.shape
+    x = torch.full((b, lpad), 4, dtype=torch.uint8, device=device)
+    x[:, :length] = torch.from_numpy(codes).to(device)
+    valid = x < 4
+    fields = torch.where(valid, x, 0).to(torch.int64)
+
+    def words(bits, per_word, width):
+        shifts = torch.arange(per_word, device=device) * width
+        w = (bits.view(b, -1, per_word) << shifts).sum(dim=2)
+        return ((w + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+    return words(fields, 16, 2), words(valid.to(torch.int64), 32, 1)
+
+
+def _planes_from_codes(codes, device):
+    """Set 1's planes built again by commet_build_planes, batch by batch,
+    from its [n, 100] codes (every read indexed: one partition)."""
+    from commet_tpu_torch.core import planes
+    pl = planes.alloc_planes(PLANE_K, device)
+    for start in range(0, len(codes), PLANE_BATCH):
+        c2, vd = _pack_on_card(codes[start:start + PLANE_BATCH], device, 128)
+        planes.build_planes(pl, c2, vd, False, 128, PLANE_K)
+    return pl
+
+
+def _plane_hit_rates(pl, codes, rows, device):
+    """Share of the complete windows (both strands) of reads ``rows`` of
+    ``codes`` whose bit is set, in each of the four planes of ``pl``: the
+    fill a random window meets (plane D's keys, a | b, are not uniform, so
+    its rate exceeds its fill)."""
+    import torch
+    from commet_tpu_torch.core import keys, planes
+    c2, vd = _pack_on_card(codes[rows], device, 128)
+    wk = keys.window_keys(keys.unpack_codes(c2, vd, 128), PLANE_K, "both",
+                          READ_LEN - PLANE_K + 1)
+    ok, w = wk["ok"], planes.plane_words(PLANE_K)
+    hits = torch.zeros(4, dtype=torch.int64, device=ok.device)
+    for s in ("f", "r"):
+        for p, key in enumerate(planes.four_plane_keys(
+                torch.where(ok, wk[s + "a"], 0),
+                torch.where(ok, wk[s + "b"], 0))):
+            word, bit = planes.plane_addr(key)
+            hits[p] += (((pl[p * w + word].to(torch.int64) >> bit) & 1 == 1)
+                        & ok).sum()
+    return (hits.cpu().numpy() / float(2 * int(ok.sum()))).tolist()
+
+
+def _plain_tags(pl, codes, rows, device):
+    """probe_planes_plain's tags of reads ``rows`` of ``codes``."""
+    import torch
+    from commet_tpu_torch.core import planes
+    out = []
+    for start in range(0, len(rows), PLANE_BATCH):
+        c2, vd = _pack_on_card(codes[rows[start:start + PLANE_BATCH]],
+                               device, 128)
+        out.append(planes.probe_planes_plain(pl, c2, vd, False, 128, PLANE_K,
+                                             T, READ_LEN - PLANE_K + 1))
+    return (torch.cat(out).cpu().numpy() if out
+            else np.zeros(0, dtype=bool))
+
+
+def trace_figures(path: str, wall_s: float) -> dict:
+    """From a Chrome trace of torch.profiler: the card's busy milliseconds
+    (the union of its kernel, copy and set intervals), their share of
+    ``wall_s`` (the same call's unprofiled wall: the profiler's own CPU
+    recording lengthens the profiled one), and the device operations with
+    the most milliseconds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in (
+                     "kernel", "gpu_memcpy", "gpu_memset"))
+    if not dev:
+        raise AssertionError(f"{path} holds no device event")
+    busy_us, end = 0.0, None
+    by_name = {}
+    for start, stop, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+        if end is None or start > end:
+            busy_us += stop - start
+            end = stop
+        elif stop > end:
+            busy_us += stop - end
+            end = stop
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e6 / wall_s,
+            "device_events": len(dev),
+            "top": [(name[:60], us / 1e3) for name, us in top]}
+
+
+def _log_times(path: str):
+    """(index time, search time, counter line) of a .log."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return (float(lines[0].split(":")[1].split()[0]),
+            float(lines[1].split(":")[1].split()[0]), lines[-1])
+
+
+def phase_default_fill(device: str, rng, tmp: str) -> dict:
+    """Phase 14: COMMET's own partition size on the card. Two sets of
+    DEFAULT_FILL_READS reads (make_pair); the port's index_and_search CLI
+    (-k 33 -t 2) with set 2 against set 1: 999.6M k-mers less the N reads'
+    in one partition (11.6% fill), so the planes. Every fragment read must
+    be tagged; each chance tag (a tagged read without a fragment) must be a
+    member of set 1's planes built again by commet_build_planes under the
+    plain probe, and a 65,536-read sample of the untagged reads must not.
+    Then set 2's first TRACE_READS reads against set 1 through Engine three
+    times: with COMMET_TPU_PROFILE (its trace gives the card's busy share),
+    with prefetch, and with COMMET_TPU_PREFETCH=0; equal tags."""
+    import torch
+    from commet_tpu_torch.cli import index_and_search
+    from commet_tpu_torch.core import planes, stream
+    from commet_tpu_torch.device import synchronize
+    from commet_tpu_torch.engine.engine import Engine
+    from commet_tpu_torch.io.bv import BitVector
+    from commet_tpu_torch.io.reads import ReadSet
+    n = DEFAULT_FILL_READS
+    t0 = time.perf_counter()
+    sets = make_pair(rng, tmp, n, 2 * PLANE_K)
+    fig = {"make_s": time.perf_counter() - t0}
+    fofs = []
+    for i in (1, 2):
+        fofs.append(os.path.join(tmp, f"pair{i}.txt"))
+        with open(fofs[-1], "w") as f:
+            f.write(f"set{i}: {os.path.join(tmp, f'set{i}.fa')}\n")
+    seen = {}
+    real = {name: getattr(Engine, name) for name in ("index_and_search",
+                                                      "partitions")}
+
+    def timed(self, index_set, query_sets, **kw):
+        seen["call_start"] = time.perf_counter()
+        out = real["index_and_search"](self, index_set, query_sets, **kw)
+        synchronize(self.device)
+        seen["io"] = dict(self.last_io_stats)
+        return out
+
+    def parts(self, kmer_counts):
+        out = real["partitions"](self, kmer_counts)
+        seen["fills"] = [float(kmer_counts[p].sum()) / 2.0 ** self.k
+                         for p in out]
+        return out
+
+    out = os.path.join(tmp, "pair_out")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(stream, planes)
+    Engine.index_and_search, Engine.partitions = timed, parts
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = index_and_search.main([
+                "-i", fofs[0], "-s", fofs[1], "-k", str(PLANE_K), "-t",
+                str(T), "-o", out, "-l", out, "--device", device])
+    finally:
+        for name, fn in real.items():
+            setattr(Engine, name, fn)
+    fig["wall_s"] = time.perf_counter() - t0
+    fig["peak"] = torch.cuda.max_memory_allocated()
+    fig["launches"] = (planes.build_planes.launches,
+                       planes.probe_planes.launches,
+                       stream.join_membership.launches)
+    if rc != 0:
+        raise AssertionError(f"index_and_search exited {rc}")
+    if min(fig["launches"][:2]) == 0 or fig["launches"][2] != 0:
+        raise AssertionError(f"build_planes/probe_planes/join launches "
+                             f"{fig['launches']}: the planes must serve")
+    if len(seen["fills"]) != 1 or seen["fills"][0] < 0.11:
+        raise AssertionError(f"partition fills {seen['fills']}: one "
+                             "partition of at least 11% expected")
+    fig["fill"] = seen["fills"][0]
+    index_s, search_s, counters = _log_times(
+        os.path.join(out, "set2_in_set1.log"))
+    searched = int(counters.split("searched ")[1].split(",")[0])
+    fig.update(counters=counters, rate=searched / search_s, split={
+        "parse": seen["call_start"] - t0, "index": index_s,
+        "search": search_s, "host_pack": seen["io"]["host_pack_s"],
+        "host_block": seen["io"]["host_block_s"],
+        "rest": fig["wall_s"] - (seen["call_start"] - t0) - index_s
+        - search_s})
+    tags = BitVector.read(os.path.join(out, "set2.fa_in_set1.bv")) \
+        .as_bool_array()[:n]
+    frag = np.arange(n) % 2 == 0
+    if not tags[frag].all():
+        raise AssertionError(f"{int((~tags[frag]).sum())} reads holding a "
+                             "fragment are untagged")
+    chance = np.nonzero(tags & ~frag)[0]
+    untagged = np.nonzero(~tags)[0]
+    sample = np.sort(rng.choice(untagged, PLANE_BATCH, replace=False))
+    t0 = time.perf_counter()
+    pl = _planes_from_codes(sets[0], device)
+    fig["fills4"] = _plane_fills(pl, PLANE_K)
+    if not _plain_tags(pl, sets[1], chance, device).all() or _plain_tags(
+            pl, sets[1], sample, device).any():
+        raise AssertionError("a chance tag or an untagged read disagrees "
+                             "with the plain probe on set 1's planes")
+    fig["hit_rates"] = _plane_hit_rates(pl, sets[1], sample, device)
+    del pl
+    torch.cuda.empty_cache()
+    fig.update(chance=len(chance), check_s=time.perf_counter() - t0,
+               chance_expected=_chance_tags(fig["hit_rates"],
+                                            int((~frag).sum()), PLANE_K),
+               chance_expected_fills=_chance_tags(
+                   fig["fills4"], int((~frag).sum()), PLANE_K))
+
+    index_set, cut = ReadSet("set1"), ReadSet("set2")
+    index_set.add_file(os.path.join(tmp, "set1.fa"))
+    cut.add_file(os.path.join(tmp, "set2_cut.fa"))
+    trace_dir = os.path.join(tmp, "traces")
+    fig["cut_walls"] = {}
+    for name, env in (("profiled", {"COMMET_TPU_PROFILE": trace_dir}),
+                      ("prefetched", {}), ("inline",
+                                           {"COMMET_TPU_PREFETCH": "0"})):
+        os.environ.update(env)
+        try:
+            eng = Engine(k=PLANE_K, t=T, device=device)
+            for bv in cut.result_bvs:
+                bv.set_all_false()
+            cut_out = os.path.join(tmp, "cut_" + name)
+            os.makedirs(cut_out)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            eng.index_and_search(index_set, [cut], out_dir=cut_out,
+                                 log_dir=cut_out)
+            synchronize(eng.device)
+            fig["cut_walls"][name] = time.perf_counter() - t0
+        finally:
+            for key in env:
+                del os.environ[key]
+        got = BitVector.read(os.path.join(cut_out, "set2_cut.fa_in_set1.bv"))
+        if not np.array_equal(got.as_bool_array()[:TRACE_READS],
+                              tags[:TRACE_READS]):
+            raise AssertionError(f"the cut call ({name}) tags differently")
+        if name == "profiled":
+            if eng.last_trace is None or not eng.last_trace.startswith(
+                    trace_dir):
+                raise AssertionError("COMMET_TPU_PROFILE wrote no trace")
+            trace_path = eng.last_trace
+    fig["trace"] = trace_figures(trace_path, fig["cut_walls"]["prefetched"])
+    fig["trace_bytes"] = os.path.getsize(trace_path)
+    return fig
+
+
+def phase_default_fill_kernels(device, gen_seed: int) -> dict:
+    """Phase 14's kernels at 11.6% fill: a four-plane set filled from
+    DEFAULT_FILL_READS random N-free reads (999.6M k-mers, one default
+    partition) by commet_build_planes, timed whole, and one more batch on
+    copies of it against the plain build, beside the bound of its distinct
+    sectors; phase 9's probe batch
+    (its fragments drawn from these reads) through probe_planes and the
+    grouped probe at S = 3 (two more sets filled the same way), each equal
+    to its plain version, timed beside its bound with its plane loads split
+    into A and B/C/D; the B/C/D loads a cascade could skip (_probe_loads);
+    and torch.sort of plane A's 999.6M int32 word addresses in chunks of
+    SORT_CHUNK (alone, and with the int32 masks gathered by its
+    permutation), the least a sorted build (K9) spends on one of its four
+    planes."""
+    import torch
+    from commet_tpu_torch.core import keys, planes
+    k, n, lpad, reads = PLANE_K, PLANE_BATCH, 128, DEFAULT_FILL_READS
+    wmax = READ_LEN - k + 1
+    words, gen = _plane_reads(device, gen_seed, lpad, reads)
+    lengths = torch.full((n,), READ_LEN, dtype=torch.int32, device=device)
+    batches = [words[i:i + n] for i in range(0, reads, n)]
+
+    def build(pl, c2):
+        planes.build_planes(pl, c2, lengths[:len(c2)], True, lpad, k)
+
+    def fill(pl, batch_list):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for b in batch_list:
+            build(pl, b)
+        end.record()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, start.elapsed_time(end)
+
+    pl = planes.alloc_planes(k, device)
+    build(pl, batches[0])  # warm-up, then from zero
+    pl.zero_()
+    fill_s, fill_ms = fill(pl, batches)
+    fills = _plane_fills(pl, k)
+    # one more batch onto copies of the filled set, kernel and plain
+    gen.manual_seed(gen_seed + 3)
+    extra = torch.randint(-2 ** 31, 2 ** 31, (n, lpad // 16),
+                          dtype=torch.int32, device=device, generator=gen)
+    kern_pl, plain_pl = pl.clone(), pl.clone()
+    build(kern_pl, extra)
+    # warm-up: batch 0 is in the set already, so it sets no bit
+    planes.build_planes_plain(plain_pl, batches[0], lengths, True, lpad, k)
+    build_plain_ms = _events_ms([lambda: planes.build_planes_plain(
+        plain_pl, extra, lengths, True, lpad, k)])
+    if not torch.equal(kern_pl, plain_pl):
+        raise AssertionError("build kernel differs from its plain version "
+                             "on a filled set")
+    del kern_pl, plain_pl
+    build_sectors = _sectors(_build_addrs(extra, lengths, lpad, k))
+    build_fig = {"max_abs_err": 0, "ms": fill_ms / len(batches),
+                 "plain_ms": build_plain_ms,
+                 "bound_ms": bound_ms(extra.numel() * 4 + n * 4
+                                      + 2 * SECTOR * build_sectors)}
+    qc2 = _probe_batch(words, device, gen_seed, lpad)
+    third = n // 3
+
+    def probe(p):
+        return planes.probe_planes(p, qc2, lengths, True, lpad, k, T, wmax)
+
+    def probe_plain(p):
+        return planes.probe_planes_plain(p, qc2, lengths, True, lpad, k, T,
+                                         wmax)
+
+    got, want = probe(pl), probe_plain(pl)
+    if not torch.equal(got, want):
+        raise AssertionError(f"probe kernel differs from its plain version "
+                             f"on {int((got != want).sum())} reads at 11.6%")
+    if not bool(got[:third].all()):
+        raise AssertionError("a read holding an indexed fragment is untagged")
+    batch_bytes = qc2.numel() * 4 + n * 4
+    loads = _probe_loads(pl, qc2, lengths, lpad, k, T, wmax)
+    sectors = _sectors(loads["addrs"])
+    fig = {"fill_s": fill_s, "fill_ms": fill_ms, "fills": fills,
+           "build": build_fig, "build_sectors": build_sectors,
+           "build_windows": reads * wmax,
+           "probe": {"max_abs_err": 0, "ms": cuda_ms(lambda: probe(pl), 10),
+                     "plain_ms": cuda_ms(lambda: probe_plain(pl), 3),
+                     "bound_ms": bound_ms(batch_bytes + SECTOR * sectors)},
+           "tagged_random": int(got[third:].sum()),
+           "loads": {key: loads[key] for key in ("a", "bcd", "skippable",
+                                                 "a_hits")},
+           "sectors": sectors,
+           "a_hits_per_strand": loads["a_hits"] / (2 * n)}
+    del loads
+
+    others = []
+    for seed in (gen_seed + 1, gen_seed + 2):
+        gen.manual_seed(seed)
+        others.append(planes.alloc_planes(k, device))
+        for _ in range(len(batches)):
+            build(others[-1], torch.randint(
+                -2 ** 31, 2 ** 31, (n, lpad // 16), dtype=torch.int32,
+                device=device, generator=gen))
+    slots = planes.PlaneSlots([pl] + others)
+
+    def multi():
+        return planes.probe_planes_multi(slots, qc2, lengths, True, lpad, k,
+                                         T, wmax)
+
+    def multi_plain():
+        return planes.probe_planes_multi_plain(slots.planes, qc2, lengths,
+                                               True, lpad, k, T, wmax)
+
+    mgot = multi()
+    if not torch.equal(mgot, multi_plain()) or not torch.equal(mgot[0], got):
+        raise AssertionError("grouped probe differs from its plain version "
+                             "or from the single probe at 11.6%")
+    multi_loads = {"a": 0, "bcd": 0}
+    multi_sectors = 0
+    for p in slots.planes:
+        got_loads = _probe_loads(p, qc2, lengths, lpad, k, T, wmax)
+        multi_loads["a"] += got_loads["a"]
+        multi_loads["bcd"] += got_loads["bcd"]
+        multi_sectors += _sectors(got_loads["addrs"])
+    fig.update(
+        multi={"max_abs_err": 0, "ms": cuda_ms(multi, 10),
+               "plain_ms": cuda_ms(multi_plain, 3),
+               "bound_ms": bound_ms(batch_bytes + 2 * n * 4
+                                    + SECTOR * multi_sectors)},
+        multi_loads=multi_loads, multi_sectors=multi_sectors,
+        multi_tagged=[int(x.sum()) for x in mgot])
+    del slots, others, mgot
+    torch.cuda.empty_cache()
+
+    # plane A's (word, bit mask) stream of the fill at commet_tpu's widths
+    # (bulk_plane_sorted: uint32 words, the uint32 mask riding along),
+    # sorted by word in chunks: torch.sort alone, and with the masks
+    # gathered by its permutation
+    buf_w = torch.empty(SORT_CHUNK, dtype=torch.int32, device=device)
+    buf_m = torch.empty(SORT_CHUNK, dtype=torch.int32, device=device)
+    sort_ms = sort_pair_ms = 0.0
+    n_keys = used = 0
+
+    def sort_chunk(m):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        words_s, perm = torch.sort(buf_w[:m])
+        ev[1].record()
+        masks_s = buf_m[:m][perm]
+        ev[2].record()
+        torch.cuda.synchronize()
+        del words_s, perm, masks_s
+        return ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[2])
+
+    sort_chunk(1 << 20)  # warm-up
+    for b in batches:
+        a, _b = keys.index_keys(keys.unpack_codes_clean(
+            b, lengths[:len(b)], lpad), k)
+        word, bit = planes.plane_addr(a)
+        word, mask = word.to(torch.int32), (1 << bit).to(torch.int32)
+        n_keys += word.numel()
+        while word.numel():
+            take = min(word.numel(), SORT_CHUNK - used)
+            buf_w[used:used + take] = word[:take]
+            buf_m[used:used + take] = mask[:take]
+            word, mask, used = word[take:], mask[take:], used + take
+            if used == SORT_CHUNK:
+                got_ms = sort_chunk(used)
+                sort_ms, sort_pair_ms = (sort_ms + got_ms[0],
+                                         sort_pair_ms + got_ms[1])
+                used = 0
+    if used:
+        got_ms = sort_chunk(used)
+        sort_ms, sort_pair_ms = sort_ms + got_ms[0], sort_pair_ms + got_ms[1]
+    fig.update(sort_ms=sort_ms, sort_pair_ms=sort_pair_ms, sort_keys=n_keys)
+    return fig
+
+
+def run_phase_default_fill(device, rng) -> dict:
+    """Phase 14: runs phase_default_fill in a temporary directory (its
+    fasta files, about 3.5 GB, go with it) and phase_default_fill_kernels,
+    logs their lines and the K7 and K9 figures."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pair = phase_default_fill("cuda", rng, tmp)
+    torch.cuda.empty_cache()
+    sp, tr = pair["split"], pair["trace"]
+    log(f"phase 14 default fill: index_and_search -k {PLANE_K} -t {T} on "
+        f"2 x {DEFAULT_FILL_READS} reads x {READ_LEN} bp (set2 in set1, "
+        f"66 bp N-free fragments in set 2's even reads), one partition at "
+        f"fill {pair['fill']:.5f}, plane fills "
+        f"{[round(f, 5) for f in pair['fills4']]}; wall "
+        f"{pair['wall_s']:.3f} s (sets made in {pair['make_s']:.3f} s "
+        f"before it): parse {sp['parse']:.3f} s, index {sp['index']:.3f} s, "
+        f"search {sp['search']:.3f} s (host pack {sp['host_pack']:.3f} s, "
+        f"dispatch waited {sp['host_block']:.3f} s), rest {sp['rest']:.3f} "
+        f"s; {pair['rate']:.0f} reads/s searched; {pair['counters']}; "
+        f"build_planes/probe_planes/join launches {pair['launches']}; "
+        f"max_memory_allocated {pair['peak']} B; every fragment read "
+        f"tagged, {pair['chance']} chance tags (expected "
+        f"{pair['chance_expected']:.1f} from the planes' hit rates on "
+        f"{PLANE_BATCH} untagged reads' windows "
+        f"{[round(f, 5) for f in pair['hit_rates']]}, "
+        f"{pair['chance_expected_fills']:.1f} from the fills), each a member "
+        f"of set 1's planes built again under the plain probe, and "
+        f"{PLANE_BATCH} untagged reads not ({pair['check_s']:.3f} s)")
+    walls = pair["cut_walls"]
+    log(f"phase 14 trace: set 2's first {TRACE_READS} reads against set 1 "
+        f"(full fill): COMMET_TPU_PROFILE call {walls['profiled']:.3f} s, "
+        f"trace of {pair['trace_bytes']} B, {tr['device_events']} device "
+        f"events, card busy {tr['busy_ms']:.3f} ms = "
+        f"{100 * tr['busy_share']:.2f}% of the unprofiled prefetch call's "
+        f"wall; top device "
+        f"operations (ms) "
+        + ", ".join(f"{name} {ms:.3f}" for name, ms in tr["top"])
+        + f"; unprofiled walls: prefetch {walls['prefetched']:.3f} s, "
+        f"COMMET_TPU_PREFETCH=0 {walls['inline']:.3f} s; equal tags")
+    fk = phase_default_fill_kernels(device, 33)
+    torch.cuda.empty_cache()
+    ld, ml = fk["loads"], fk["multi_loads"]
+    total = ld["a"] + ld["bcd"]
+    skip_share = ld["skippable"] / total
+    # torch.sort's radix passes move a 4-byte word and an 8-byte index per
+    # entry where commet_tpu's pair sort moves the word and a 4-byte mask:
+    # 8/12 of the bytes, the least its sort could take if bytes bound it
+    k9_ms = 4 * fk["sort_ms"]
+    k9_pair_ms = k9_ms * 8 / 12
+    pb, mb = fk["probe"], fk["multi"]
+    log(f"phase 14 kernels at 11.6%: {DEFAULT_FILL_READS} random reads "
+        f"({fk['build_windows']} windows) built into a 4 GiB set in "
+        f"{fk['fill_s']:.3f} s ({fk['fill_ms']:.3f} ms by CUDA events), "
+        f"plane fills {[round(f, 5) for f in fk['fills']]}; a "
+        f"{PLANE_BATCH}-read batch on the filled set equal to the plain "
+        f"version's, " + _kernel_figures(fk["build"])
+        + f" (kernel ms the fill's mean a batch; {fk['build_sectors']} "
+        f"distinct sectors); probe of phase 9's batch "
+        f"equal to the plain version's, " + _kernel_figures(pb)
+        + f", {ld['a']} A and {ld['bcd']} B/C/D plane loads on "
+        f"{fk['sectors']} distinct sectors, {fk['a_hits_per_strand']:.3f} "
+        f"A hits per read and strand, {fk['tagged_random']} random reads "
+        f"tagged; probe_multi at S = 3 (tags per slot {fk['multi_tagged']}) "
+        f"equal to its plain version's, " + _kernel_figures(mb)
+        + f", {ml['a']} A and {ml['bcd']} B/C/D loads on "
+        f"{fk['multi_sectors']} distinct sectors")
+    log(f"phase 14 decisions: K7: {ld['skippable']} of the probe's {total} "
+        f"plane loads are B/C/D loads past the {CASCADE_V} leftmost and "
+        f"{CASCADE_V} rightmost A hits of their strand "
+        f"({100 * skip_share:.2f}%; close under 15%: "
+        f"{'close' if skip_share < 0.15 else 'queue'}); K9: torch.sort of "
+        f"plane A's {fk['sort_keys']} int32 word addresses in chunks of "
+        f"{SORT_CHUNK} {fk['sort_ms']:.3f} ms ({fk['sort_pair_ms']:.3f} ms "
+        f"with the int32 masks gathered by its permutation), x 4 planes "
+        f"{k9_ms:.3f} ms, {k9_pair_ms:.3f} ms at the 8 of 12 bytes an "
+        f"entry a (word, mask) pair sort moves, against the atomic build's "
+        f"fill {fk['fill_ms']:.3f} ms ("
+        f"{'close' if k9_pair_ms > fk['fill_ms'] else 'queue'}) "
+        f"({time.perf_counter() - t0:.3f} s for phase 14)")
+    return {"pair": {key: val for key, val in pair.items()
+                     if key != "trace"}, "trace": tr, "kernels": fk}
 
 
 def _pair_sets(tmp: str, names):
@@ -2246,14 +2943,25 @@ def run_phase_mesh_kernels(device) -> dict:
         f"sectors the result needs); the one-pass design's "
         f"{loads['every']} plane loads on {sectors['every']} distinct "
         f"sectors (bound {mk['one_pass_bound_ms']:.4f} ms a range); whole "
-        f"sharded probe {mk['sharded_ms']:.4f} ms; class counts of a dirty "
-        f"{PLANE_BATCH}-read batch equal to the plain version's and "
-        f"numpy's, " + _kernel_figures(mk["class_counts"])
-        + f"; filter_batch_device = the host filter {mk['filter_stats']} "
-        f"(class_counts launches {mk['class_counts_launches']}); "
+        f"sharded probe {mk['sharded_ms']:.4f} ms; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
         f"({time.perf_counter() - t0:.3f} s)")
     return mk
+
+
+def run_phase_class_counts(device) -> dict:
+    """Phase 13.1's class counts: runs phase_class_counts and logs its
+    line."""
+    t0 = time.perf_counter()
+    cc = phase_class_counts(device, 33)
+    log(f"phase 13.1 class counts: a dirty {PLANE_BATCH}-read batch of 128 "
+        f"positions and {cc['large_reads']} dirty reads made on the card "
+        f"equal to the plain version's (and the batch to numpy's); "
+        + _class_counts_line(cc)
+        + f"; filter_batch_device = the host filter {cc['filter_stats']} "
+        f"(class_counts launches {cc['launches']}) "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return cc
 
 
 def _mesh_walls(pair: dict) -> str:
@@ -2324,10 +3032,14 @@ def main(argv=None) -> int:
     plane_kernels_only = args == ["--plane-kernels"]
     join_kernels_only = args == ["--join-kernels"]
     mesh_kernels_only = args == ["--mesh-kernels"]
+    class_counts_only = args == ["--class-counts"]
+    default_fill_only = args == ["--default-fill"]
     if args and not (plane_kernels_only or join_kernels_only
-                     or mesh_kernels_only):
+                     or mesh_kernels_only or class_counts_only
+                     or default_fill_only):
         print("usage: chip_smoke.py [--plane-kernels | --join-kernels | "
-              "--mesh-kernels]", file=sys.stderr)
+              "--mesh-kernels | --class-counts | --default-fill]",
+              file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "commet_tpu_torch")):
@@ -2373,10 +3085,19 @@ def main(argv=None) -> int:
         return 0
 
     if mesh_kernels_only:
-        mk = run_phase_mesh_kernels(device)
-        log(json.dumps({key: val for key, val in mk.items()
-                        if key not in ("filter_stats",
-                                       "class_counts_launches")}))
+        log(json.dumps(run_phase_mesh_kernels(device)))
+        return 0
+
+    if default_fill_only:
+        log(json.dumps(run_phase_default_fill(device,
+                                              np.random.default_rng(14)),
+                       default=str))
+        return 0
+
+    if class_counts_only:
+        cc = run_phase_class_counts(device)
+        log(json.dumps({key: cc[key] for key in ("batch", "large",
+                                                 "large_reads")}))
         return 0
 
     kern = run_phase_kernel(device, rng)
@@ -2525,6 +3246,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mk = run_phase_mesh_kernels(device)
     torch.cuda.empty_cache()
+    cc = run_phase_class_counts(device)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
@@ -2584,6 +3307,9 @@ def main(argv=None) -> int:
             f"the single-device call (.bv bytes, {pair['single'][1]}); "
             + _mesh_walls(pair) + f" ({time.perf_counter() - t0:.3f} s)")
 
+    torch.cuda.empty_cache()
+    run_phase_default_fill(device, np.random.default_rng(14))
+
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:
         raise AssertionError(f"the port imported JAX: {loaded[:5]}")
@@ -2620,9 +3346,12 @@ def main(argv=None) -> int:
             ("probe_planes_part_a", PLANES_SOURCE, PROBE_PART_A_REPLACES,
              mesh_launches["probe_planes_part_a"], "probe_part_a"),
             ("probe_planes_part", PLANES_SOURCE, PROBE_PART_REPLACES,
-             mesh_launches["probe_planes_part"], "probe_part"),
-            ("class_counts", FILTER_SOURCE, CLASS_COUNTS_REPLACES,
-             mk["class_counts_launches"], "class_counts"))]}))
+             mesh_launches["probe_planes_part"], "probe_part"))] + [
+        {"name": "class_counts", "route": "cuda", "source": FILTER_SOURCE,
+         "replaces": CLASS_COUNTS_REPLACES, "launches": cc["launches"],
+         **{key: cc["batch"][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms")},
+         **NO_LIBRARY}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -37,7 +37,7 @@ def _bits(words: torch.Tensor, per_word: int, width: int, length: int):
     shifts = torch.arange(per_word, device=words.device) * width
     mask = (1 << width) - 1
     out = (_widen(words)[:, :, None] >> shifts) & mask
-    return out.reshape(n, -1)[:, :length]
+    return out.reshape(n, words.shape[1] * per_word)[:, :length]
 
 
 def unpack_codes(codes2: torch.Tensor, valid: torch.Tensor, length: int):

@@ -37,6 +37,16 @@ when long reads would make a batch's window keys exceed what the device
 budget per batch holds; where even the floor of STREAM_MIN_BATCH reads is too
 large, search_set takes the exact probe and search_multi_set declines.
 
+The environment switches commet_tpu's engine reads, read as it reads them
+when the engine is made: ``COMMET_TPU_STREAM_BATCH``,
+``COMMET_TPU_PROBE_BATCH`` and ``COMMET_TPU_BUILD_BATCH`` (``int(...)``)
+replace the STREAM_BATCH cap of the stream probe, the plane probe and the
+index builds (the memory clamps still apply on top); ``COMMET_TPU_PREFETCH=0``
+makes each host batch inline, without the prefetch thread; and
+``COMMET_TPU_PROFILE=<dir>`` (read at each call, as commet_tpu reads it)
+runs every ``index_and_search`` call under ``torch.profiler`` and writes one
+Chrome trace per call into ``<dir>``.
+
 With a mesh (parallel/sharded.py: an explicit list of devices, repeats
 allowed) the engine runs commet_tpu's multi-device modes: ``dp`` replicates
 each partition's sorted index or plane set (built on the mesh's first
@@ -51,6 +61,7 @@ There is no CPU fallback: the engine runs on the device it is given.
 from __future__ import annotations
 
 import os
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -67,7 +78,9 @@ from commet_tpu_torch.parallel import sharded
 
 # reads per host batch of the exact fallback
 DEFAULT_BATCH = 4096
-# reads per device batch of the index build and the stream probe, at most
+# reads per device batch of the index builds and the stream and plane
+# probes, at most (each path's default; COMMET_TPU_BUILD_BATCH,
+# COMMET_TPU_STREAM_BATCH and COMMET_TPU_PROBE_BATCH override it)
 STREAM_BATCH = 65536
 # ... and at least, unless the set is smaller (commet_tpu's floor)
 STREAM_MIN_BATCH = 2048
@@ -116,18 +129,19 @@ def stream_max_keys(slots: int = 1) -> int:
                                   + slots * SLOT_BYTES_PER_KEY)
 
 
-def stream_batch_size(n_reads: int, wmax: int,
-                      slots: int = 1) -> Optional[int]:
+def stream_batch_size(n_reads: int, wmax: int, slots: int = 1,
+                      limit: int = STREAM_BATCH) -> Optional[int]:
     """Reads per stream batch for ``n_reads`` reads of up to ``wmax``
-    windows (every batch is padded to the longest read): STREAM_BATCH,
-    halved while the batch's window keys (reads x 2 strands x wmax) exceed
+    windows (every batch is padded to the longest read): ``limit``, halved
+    while the batch's window keys (reads x 2 strands x wmax) exceed
     stream_max_keys, down to the floor of STREAM_MIN_BATCH reads; None when
-    even the floor exceeds it. Counterpart of the geometry of commet_tpu's
-    Engine._search_stream_only and search_multi_set."""
+    even the floor exceeds it.
+    Counterpart of the geometry of commet_tpu's Engine._search_stream_only
+    and search_multi_set."""
     cap = stream_max_keys(slots)
     if STREAM_MIN_BATCH * 2 * wmax > cap:
         return None
-    size = STREAM_BATCH
+    size = limit
     while size > STREAM_MIN_BATCH and size * 2 * wmax > cap:
         size = max(size // 2, STREAM_MIN_BATCH)
     return max(1, min(n_reads, size))
@@ -139,6 +153,17 @@ def row_batch_size(limit: int, wmax: int) -> int:
     exact fallback, and of an index build the stream geometry cannot
     serve."""
     return max(1, min(limit, stream_max_keys() // (2 * wmax)))
+
+
+def batch_switch(name: str) -> int:
+    """Reads per batch that the environment switch ``name`` asks for, read
+    as commet_tpu reads it (``int(...)``: a value that is not an integer
+    raises ValueError, as does one below 1); STREAM_BATCH when unset."""
+    value = int(os.environ.get(name, STREAM_BATCH))
+    if value < 1:
+        raise ValueError(f"{name}={value}: reads per batch must be at "
+                         "least 1")
+    return value
 
 
 def _pad_length(lmax: int, k: int) -> int:
@@ -244,8 +269,9 @@ class Engine:
     """Builds the sorted index or the bit planes of each partition of an
     index set and classifies query sets against it, with the reference's
     partitioning semantics. ``device`` is "cuda" (the CUDA kernels) or "cpu"
-    (their plain PyTorch versions); "cuda" without a card raises. The route
-    settings are read from the environment when the engine is made.
+    (their plain PyTorch versions); "cuda" without a card raises. The route,
+    batch and prefetch settings are read from the environment when the
+    engine is made.
 
     ``mesh`` (a sharded.Mesh of ``device``'s type, its first device the
     engine's) runs the partitions over several devices in ``mesh_mode``
@@ -284,6 +310,14 @@ class Engine:
         self.stream_off = mode == "0"
         self.stream_max_fill = float(os.environ.get(
             "COMMET_TPU_STREAM_MAX_FILL", str(STREAM_MAX_FILL)))
+        # reads per batch of each path and the background gather+pack
+        # thread (COMMET_TPU_PREFETCH=0: inline)
+        self.stream_batch = batch_switch("COMMET_TPU_STREAM_BATCH")
+        self.probe_batch = batch_switch("COMMET_TPU_PROBE_BATCH")
+        self.build_batch = batch_switch("COMMET_TPU_BUILD_BATCH")
+        self.prefetch = os.environ.get("COMMET_TPU_PREFETCH", "1") != "0"
+        # the Chrome trace of the last profiled index_and_search call
+        self.last_trace: Optional[str] = None
         # host-IO accounting of the last search call: total gather+pack
         # work (prefetch thread), time the dispatch loop waited for a batch,
         # time spent fetching verdicts
@@ -306,8 +340,16 @@ class Engine:
         """Yield (row_slice, codes2, valid, lengths, clean) host batches of
         at most ``size`` reads. The next batch's gather+pack runs on a
         background thread while the caller works on the current one (the
-        native assembler releases the GIL)."""
+        native assembler releases the GIL); with prefetch off each batch is
+        made inline, its pack counted as time the dispatch loop waited."""
         starts = list(range(0, len(idx), size))
+        if not self.prefetch:
+            for start in starts:
+                t0 = time.time()
+                cur = self._host_batch(enc, idx[start:start + size], lpad)
+                self._io_block += time.time() - t0
+                yield (slice(start, min(start + size, len(idx))), *cur)
+            return
         if not starts:
             return
         with ThreadPoolExecutor(max_workers=1) as ex:
@@ -455,7 +497,7 @@ class Engine:
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
         for _sl, c2, vd, ln, clean in self._batched_packed(
-                enc, idx, lpad, row_batch_size(STREAM_BATCH, wmax)):
+                enc, idx, lpad, row_batch_size(self.build_batch, wmax)):
             aux = ln if clean else vd
             if self.mesh_mode == "plane":
                 sharded.build_planes_sharded(out, c2, aux, clean, lpad)
@@ -475,8 +517,8 @@ class Engine:
         lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
-        size = (stream_batch_size(len(idx), wmax)
-                or row_batch_size(STREAM_BATCH, wmax))
+        size = (stream_batch_size(len(idx), wmax, limit=self.build_batch)
+                or row_batch_size(self.build_batch, wmax))
         ka, kb = [], []
         for _sl, c2, vd, ln, clean in self._batched_packed(
                 enc, idx, lpad, size):
@@ -511,7 +553,7 @@ class Engine:
         if not (isinstance(sidx, stream.StreamIndex)
                 or isinstance(sidx, sharded.Replicas) and sidx.sorted_index):
             return self._search_planes(sidx, enc, idx, lpad, wmax)
-        size = stream_batch_size(len(idx), wmax)
+        size = stream_batch_size(len(idx), wmax, limit=self.stream_batch)
         if size is None:
             return self._search_stream_fallback(sidx, enc, idx, lpad, wmax)
         pending = []  # (slice, device verdicts): fetched after dispatching
@@ -556,7 +598,7 @@ class Engine:
         pending = []  # (slice, device tags): fetched after dispatching
         self._io_reset()
         for sl, c2, vd, ln, clean in self._batched_packed(
-                enc, idx, lpad, row_batch_size(STREAM_BATCH, wmax)):
+                enc, idx, lpad, row_batch_size(self.probe_batch, wmax)):
             aux = ln if clean else vd
             if isinstance(pl, sharded.PlaneShards):
                 got = sharded.probe_planes_sharded(pl, c2, aux, clean, lpad,
@@ -608,7 +650,32 @@ class Engine:
         classify every query set with found-read skipping; then write the
         per-file result .bv's and the per-pair logs. Returns {query name:
         {indexed, searched, shared, index_time, search_time,
-        total_time}}."""
+        total_time}}. With COMMET_TPU_PROFILE=<dir> the call runs under
+        torch.profiler (CPU activity, and the card's on CUDA) and writes a
+        Chrome trace of its own into <dir> (``last_trace``), as commet_tpu
+        wraps the same call in jax.profiler.trace."""
+        profile_dir = os.environ.get("COMMET_TPU_PROFILE")
+        if not profile_dir:
+            return self._index_and_search(index_set, query_sets, out_dir,
+                                          log_dir, save)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            out = self._index_and_search(index_set, query_sets, out_dir,
+                                         log_dir, save)
+            synchronize(self.device)
+        fd, path = tempfile.mkstemp(prefix="index_and_search_",
+                                    suffix=".pt.trace.json", dir=profile_dir)
+        os.close(fd)
+        prof.export_chrome_trace(path)
+        self.last_trace = path
+        return out
+
+    def _index_and_search(self, index_set: ReadSet, query_sets: List[ReadSet],
+                          out_dir: Optional[str], log_dir: Optional[str],
+                          save: bool) -> Dict[str, Dict[str, float]]:
         t_start = time.time()
         enc_index = EncodedSet(index_set)
         enc_queries = [EncodedSet(q) for q in query_sets]
@@ -737,7 +804,8 @@ class Engine:
             lpad = _pad_length(lmax, self.k)
             wmax = max(1, lmax - self.k + 1)
             size = stream_batch_size(len(cand), wmax,
-                                     min(len(slots), max_slots))
+                                     min(len(slots), max_slots),
+                                     limit=self.stream_batch)
             if size is None:
                 return None
             self._io_reset()
@@ -842,7 +910,7 @@ class Engine:
             lmax = int(enc_q.read_lengths(cand).max(initial=1))
             lpad = _pad_length(lmax, self.k)
             wmax = max(1, lmax - self.k + 1)
-            size = row_batch_size(STREAM_BATCH, wmax)
+            size = row_batch_size(self.probe_batch, wmax)
             self._io_reset()
             fetch_s = 0.0
             for base in range(0, len(slots), max_slots):

@@ -74,3 +74,62 @@ def test_filter_batch_device_matches_jax_and_host(kw):
     np.testing.assert_array_equal(keep, keep_h)
     assert stats == stats_j == stats_h
     assert 0 < stats["nb_selected"] < len(seqs)
+
+
+def _random_batch(rng, n, length):
+    """n reads of 0..length random ACGT bases at an N rate of 10% (invalid
+    in the validity words, as padding is), packed to ``length`` positions
+    for both packages: (codes2, valid, lengths)."""
+    codes = rng.integers(0, 4, (n, length)).astype(np.uint8)
+    lens = rng.integers(0, length + 1, n)
+    if n:
+        lens[0] = length  # a read that fills the padded length
+    codes[rng.random((n, length)) < 0.1] = kernels.INVALID_CODE
+    codes[np.arange(length) >= lens[:, None]] = kernels.INVALID_CODE
+    c2, vd = kernels.pack_codes_np(codes)
+    return c2, vd, lens.astype(np.int32)
+
+
+def _assert_counts_match_jax(c2, vd, lens, length):
+    want = np.asarray(kernels.class_counts_packed(
+        jnp.asarray(c2), jnp.asarray(vd), jnp.asarray(lens), length))
+    got = tfilter.class_counts_packed(keys.host_u32(c2), keys.host_u32(vd),
+                                      torch.from_numpy(lens), length)
+    assert got.dtype == torch.int32 and got.shape == (len(lens), 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("lengths", [(1, 15, 16, 17, 63, 64), (65, 128),
+                                     (300,)],
+                         ids=["one_lane", "two_lanes", "eight_lanes"])
+def test_class_counts_lane_groups_match_jax(lengths):
+    """The plain version against commet_tpu's class_counts_packed at the
+    padded lengths where the kernel's lane groups change (a read takes
+    ceil(ceil(length / 16) / 4) lanes rounded up to a power of two: one up
+    to 64 positions, two up to 128, eight at 300) and at the code and
+    validity word boundaries inside them; 999 reads, not a multiple of the
+    reads a warp holds."""
+    rng = np.random.default_rng(sum(lengths))
+    for length in lengths:
+        want = _assert_counts_match_jax(*_random_batch(rng, 999, length),
+                                        length)
+        assert int(want[:, :4].sum()) > 0 and int(want[:, 4].sum()) > 0
+
+
+def test_class_counts_edge_rows_match_jax():
+    """No read, one read, and row counts one off a warp's and a block's
+    reads at two lanes a read (16 and 128 reads): the plain version equals
+    commet_tpu's, and no read gives a [0, 5] result, as the kernel's
+    wrapper does on the card (commet_tpu's jitted function raises on an
+    empty batch, so that case is the port's alone)."""
+    rng = np.random.default_rng(5)
+    for n in (0, 1, 15, 17, 127, 129):
+        c2, vd, lens = _random_batch(rng, n, 100)
+        if n == 0:
+            got = tfilter.class_counts_packed(
+                keys.host_u32(c2), keys.host_u32(vd), torch.from_numpy(lens),
+                100)
+            assert got.shape == (0, 5) and got.dtype == torch.int32
+            continue
+        _assert_counts_match_jax(c2, vd, lens, 100)

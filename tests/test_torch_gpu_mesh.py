@@ -102,25 +102,51 @@ def test_ranged_plane_kernels_match_plain_on_card(cuda_device, k):
 
 @pytest.mark.gpu
 def test_class_counts_kernel_matches_plain_on_card(cuda_device):
-    """commet_class_counts against class_counts_packed_plain: N-heavy reads,
-    empty reads, reads filling the padded length, lengths not a multiple
-    of 16 or 32."""
+    """commet_class_counts against class_counts_packed_plain and numpy:
+    N-heavy reads, empty reads, reads filling the padded length, lengths not
+    a multiple of 16 or 32; the padded lengths where the kernel's lane
+    groups change (1, 15, 16, 17, 63, 64, 65, 128, 300), each with rows
+    packed to exactly ceil(length / 16) code words (word by word loads where
+    that is not a whole quad) and to whole quads (16-byte loads), and row
+    counts of 0, 1 and one off a warp's and a block's reads."""
     rng = np.random.default_rng(12)
     seqs = random_seqs(rng, 3000, 0, 203, n_frac=0.2)
     seqs[7] = b""
     seqs[8] = b"N" * 203
-    for length in (203, 224):
-        codes = encode(seqs, length)
-        c2, vd = (x.to(cuda_device) for x in _pack(codes, False))
-        lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32,
+    cases = [(seqs, length, 0) for length in (203, 224)]
+    for length in (1, 15, 16, 17, 63, 64, 65, 128, 300):
+        for n in (999, 0, 1, 15, 17, 127, 129):
+            cases += [(random_seqs(rng, n, 0, length, n_frac=0.1), length,
+                       quads) for quads in (False, True)]
+    for case_seqs, length, quads in cases:
+        codes = encode(case_seqs, length) if case_seqs else np.zeros(
+            (0, length), dtype=np.uint8)
+        c2, vd = _pack(codes, False)
+        if quads:  # widths a multiple of 4 and 2 words, zeros past length
+            c2 = torch.nn.functional.pad(c2, (0, -c2.shape[1] % 4))
+            vd = torch.nn.functional.pad(vd, (0, -vd.shape[1] % 2))
+        c2, vd = c2.contiguous().to(cuda_device), vd.contiguous().to(
+            cuda_device)
+        lens = torch.tensor([len(s) for s in case_seqs], dtype=torch.int32,
                             device=cuda_device)
         before = tfilter.class_counts_packed.launches
         got = tfilter.class_counts_packed(c2, vd, lens, length)
         torch.cuda.synchronize()
-        assert tfilter.class_counts_packed.launches == before + 1
+        assert tfilter.class_counts_packed.launches == before + (
+            1 if case_seqs else 0)
+        assert got.shape == (len(case_seqs), 5)
+        if not case_seqs:
+            continue
         want = tfilter.class_counts_packed_plain(c2, vd, lens, length)
-        assert torch.equal(got, want)
-        assert int(want[:, 4].sum()) > 0
+        assert torch.equal(got, want), (length, len(case_seqs), quads)
+        valid = codes < 4
+        host = np.stack([((codes == c) & valid).sum(axis=1)
+                         for c in range(4)], axis=1)
+        host = np.concatenate([host, (lens.cpu().numpy()
+                                      - host.sum(axis=1))[:, None]], axis=1)
+        np.testing.assert_array_equal(got.cpu().numpy(), host)
+        if length in (203, 224) and not quads:
+            assert int(want[:, 4].sum()) > 0  # the data reach "other"
 
 
 @pytest.mark.gpu
