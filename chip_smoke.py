@@ -7,12 +7,15 @@
     python3 chip_smoke.py --mesh-kernels
     python3 chip_smoke.py --class-counts
     python3 chip_smoke.py --default-fill
+    python3 chip_smoke.py --bulk-build
 
 With --plane-kernels it runs phases 1, 2 and 9's timed part only, with
 --join-kernels phases 1, 2, 3 and 5's timed part only, with --mesh-kernels
 phases 1, 2 and 13.1's plane kernels, with --class-counts phases 1, 2 and
-13.1's class counts, with --default-fill phases 1, 2 and 14, and prints
-their figures as one JSON line. To time two versions of the kernels in
+13.1's class counts, with --default-fill phases 1, 2 and 14, with
+--bulk-build phases 1, 2 and 14's kernels at 11.6% fill (the atomic fill,
+the probes and the bulk build, without the CLI pair), and prints their
+figures as one JSON line. To time two versions of the kernels in
 turns on one card, run it in a checkout of each in one command (order:
 other, this, this, other); --join-kernels needs of the package only
 join_membership, join_membership_multi, JoinSlots, their plain versions and
@@ -25,8 +28,9 @@ Phases, each printing one line with its seconds:
      (join.cu: commet_join, commet_join_multi; planes.cu:
      commet_build_planes, commet_probe_planes, commet_probe_planes_multi,
      commet_build_planes_range, commet_probe_planes_part_a,
-     commet_probe_planes_part; filter.cu: commet_class_counts), one nvcc
-     per source, started together;
+     commet_probe_planes_part, commet_bulk_hist, commet_bulk_scatter,
+     commet_bulk_apply; filter.cu: commet_class_counts), one nvcc per
+     source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows), sorted and
@@ -84,14 +88,21 @@ Phases, each printing one line with its seconds:
      then the edge shapes: build, probe and grouped probe against their
      plain versions at k in {15, 21, 31, 33}, t in {1, 2, 17}, S in
      {1, 3, 32}, dirty batches with internal Ns and clean ones, reads
-     shorter than k, 100 and 300 bp reads;
+     shorter than k, 100 and 300 bp reads; and the bulk build's kernels
+     (histogram, scatter, apply) against their plain versions on such
+     reads at the same k, in chunks of three 2,000-read batches (so a
+     BulkChunk flushes many times and its last chunk is smaller) and a
+     chunk with no complete window, BulkChunk's planes equal to the
+     per-batch build's and bulk_build_planes_plain's;
  10. planes main path: commet -k 33 -t 2 (COMMET's defaults) on four sets of
      4M reads x 100 bp made as in phase 6 with 66 bp fragments, every
      fragment N-free (the 1% N reads are drawn among the reads that hold or
      give none); 272M k-mers per set, 3.2% fill, above the gate, so step 0
      runs the plane cohorts (three 4 GiB residents). The driver must say so,
-     probe S = 3 slots for set 4, launch every plane kernel, and match the
-     known shared counts;
+     probe S = 3 slots for set 4, launch the default build's kernels
+     (engine.CARD_BULK_BUILD: the bulk build's three, else
+     commet_build_planes) and both probes, and match the known shared
+     counts;
  11. compare_reads at COMMET's defaults (-k 33 -t 2), in phase 10's
      directory after its driver: set 1 against set 2 of phase 10, each file
      with the driver's filter .bv and set name. Pass 1 (set 2 in set 1)
@@ -172,15 +183,25 @@ Phases, each printing one line with its seconds:
      11.6%: the fill of one default partition (14.7M random reads) timed,
      phase 9's probe batch through probe_planes and the grouped probe at
      S = 3 against their plain versions beside their bounds, plane loads
-     split into A and B/C/D; the B/C/D loads a cascade (K7) could skip and
-     torch.sort of plane A's 999.6M int32 word addresses in chunks of 2^27
-     (the least a sorted build, K9, spends a plane), each against its rule.
+     split into A and B/C/D; the B/C/D loads a cascade (K7) could skip,
+     against its rule. The bulk build (K9) of the same partition in the
+     engine's chunks of 2^27 window slots: the whole build (host clock and
+     CUDA events) against the fill, equal planes, each kernel's device ms
+     (torch.profiler) beside its bound, each kernel against its plain
+     version on the first chunk and the plain versions timed,
+     torch.sort of that chunk's keys (the library yardstick), the build
+     again beside the two resident sets with the cohorts' chunk of 2^26,
+     equal, with each build's max_memory_allocated; the faster route
+     printed beside the engine's card default.
 Each main path (phases 6, 10, 11, 14's CLI call and 12's --jobs run, 13.2
 to 13.4's runs, 13.1's filter) runs with every kernel's launch count set
-to 0 just before it and read just after; the kernels line takes the
-ranged build's and the probe passes' launches from 13.3's plane-mode run
-and the class counts' from 13.1's filter_batch_device, and the class
-counts' ms from torch.profiler at 65,536 reads. At the end no module of
+to 0 just before it and read just after; the kernels line (twelve
+kernels) takes the plane kernels' launches from phase 10 (the per-batch
+build's from 13.3's dp run when the bulk build is the card's default: a
+mesh never takes it), the ranged build's and the probe passes' from 13.3's
+plane-mode run and the class counts' from 13.1's filter_batch_device, the
+class counts' ms from torch.profiler at 65,536 reads and the bulk kernels'
+(per launch) from phase 14. At the end no module of
 JAX or of the JAX package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
@@ -220,6 +241,9 @@ PROBE_MULTI_REPLACES = "commet_tpu/core/kernels.py:604"
 BUILD_RANGE_REPLACES = "commet_tpu/parallel/sharded.py:114"
 PROBE_PART_A_REPLACES = "commet_tpu/parallel/sharded.py:91"
 PROBE_PART_REPLACES = "commet_tpu/parallel/sharded.py:136"
+BULK_HIST_REPLACES = "commet_tpu/core/kernels.py:772"
+BULK_SCATTER_REPLACES = "commet_tpu/core/kernels.py:813"
+BULK_APPLY_REPLACES = "commet_tpu/core/kernels.py:823"
 FILTER_SOURCE = "commet_tpu_torch/core/csrc/filter.cu"
 CLASS_COUNTS_REPLACES = "commet_tpu/core/kernels.py:831"
 # phase 13: mesh entries (word ranges, shares, key-range slices) and the
@@ -236,11 +260,9 @@ PLANE_SET_READS = 4_000_000
 CASCADE_V = 8
 # phase 14: COMMET's default partition, one pair at k = 33: 68 windows a
 # 100 bp read, 14.7M x 68 = 999.6M k-mers, one partition under the 1e9 cap
-# (11.6% of 2^33); the trace's query set; commet_tpu's bulk-build chunk at
-# k >= 32 (commet_tpu/engine/engine.py:689)
+# (11.6% of 2^33); the trace's query set
 DEFAULT_FILL_READS = 14_700_000
 TRACE_READS = 2_000_000
-SORT_CHUNK = 1 << 27
 # reads of the class counts' large batch (phase 13.1): 288 MB at 128
 # positions, where the bytes, not the launch, set the bound
 CLASS_COUNT_READS = 4 << 20
@@ -1209,6 +1231,112 @@ def phase_plane_edges(device, rng):
     return cases
 
 
+def _sorted_bins(bins, offsets):
+    """Every entry of ``bins`` keyed by its bin (``offsets``), sorted: the
+    bins as sets (the scatter kernel appends in the order its atomics
+    land)."""
+    import torch
+    n = offsets[1:] - offsets[:-1]
+    b = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n)
+    return torch.sort(b * (1 << 32) + bins[:b.numel()].to(torch.int64)).values
+
+
+def _bulk_chunk_check(pl, chunk, k: int) -> None:
+    """One chunk of packed batches ORed into ``pl`` by the bulk kernels,
+    each against its plain version: the histogram of each batch, the bins
+    the scatters fill (as sets, and every cursor ending at the next bin's
+    offset), and the apply onto ``pl`` against the plain apply of the same
+    bins onto a copy."""
+    import torch
+    from commet_tpu_torch.core import planes
+    _sb, _sw, ns = planes.bulk_layout(k)
+    counts = torch.zeros(4 * ns, dtype=torch.int64, device=pl.device)
+    for bt in chunk:
+        before = counts.clone()
+        planes.bulk_histogram(counts, *bt, k)
+        if not torch.equal(counts - before,
+                           planes.bulk_histogram_plain(*bt, k)):
+            raise AssertionError(f"k={k}: bulk_histogram differs from its "
+                                 "plain version")
+    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=pl.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    size = 4 * sum(planes.bulk_slots(bt[0], bt[3], k) for bt in chunk)
+    bins = torch.empty(size, dtype=torch.int32, device=pl.device)
+    want_bins = torch.empty_like(bins)
+    cursor, want_cursor = offsets[:-1].clone(), offsets[:-1].clone()
+    for bt in chunk:
+        planes.bulk_scatter(bins, cursor, *bt, k)
+        planes.bulk_scatter_plain(want_bins, want_cursor, *bt, k)
+    if not (torch.equal(cursor, offsets[1:])
+            and torch.equal(want_cursor, offsets[1:])
+            and torch.equal(_sorted_bins(bins, offsets),
+                            _sorted_bins(want_bins, offsets))):
+        raise AssertionError(f"k={k}: bulk_scatter differs from its plain "
+                             "version")
+    want = planes.bulk_apply_plain(pl.clone(), bins, offsets, k)
+    planes.bulk_apply(pl, bins, offsets, k)
+    torch.cuda.synchronize()
+    if not torch.equal(pl, want):
+        raise AssertionError(f"k={k}: bulk_apply differs from its plain "
+                             f"version in {int((pl != want).sum())} words")
+
+
+def phase_bulk_edges(device, rng):
+    """The bulk build's kernels against their plain versions at edge shapes,
+    for k in EDGE_K: phase 9's edge reads (dirty and clean batches, reads
+    shorter than k, 100 and 300 bp reads, Ns) in batches of 2,000 reads,
+    chunks of three batches' window slots (so a BulkChunk flushes every
+    third batch and its last chunk is smaller), and a chunk with no
+    complete window. Per chunk each kernel against its plain version
+    (_bulk_chunk_check); the BulkChunk planes against the per-batch kernel
+    build and bulk_build_planes_plain. Returns the chunks checked."""
+    import torch
+    from commet_tpu_torch.core import planes
+    chunks = 0
+    for k in EDGE_K:
+        idx, lens = _edge_reads(rng, 20_000, k, 0.003)
+        batches = [(*_edge_pack(device, idx[rows], lens[rows], clean), clean,
+                    320)
+                   for clean in (False, True)
+                   for rows in np.array_split(np.arange(20_000), 5)]
+        short = np.nonzero(lens < k)[0]
+        empty = (*_edge_pack(device, idx[short], lens[short], False), False,
+                 320)
+        cap = 3 * planes.bulk_slots(batches[0][0], 320, k)
+        per_batch = planes.alloc_planes(k, device)
+        for bt in batches:
+            planes.build_planes(per_batch, *bt, k)
+        checked = planes.alloc_planes(k, device)
+        plain = planes.alloc_planes(k, device)
+        bulk = planes.alloc_planes(k, device)
+        acc = planes.BulkChunk(bulk, k)
+        cut = []
+        for bt in batches + [empty]:
+            cut.append(bt)
+            acc.add(*bt)
+            if acc.slots >= cap:
+                acc.flush()
+                _bulk_chunk_check(checked, cut, k)
+                planes.bulk_build_planes_plain(plain, cut, k)
+                cut, chunks = [], chunks + 1
+        acc.flush()
+        _bulk_chunk_check(checked, cut, k)
+        planes.bulk_build_planes_plain(plain, cut, k)
+        before = bulk.clone()
+        planes.bulk_build_planes(bulk, [empty], k)
+        _bulk_chunk_check(checked, [empty], k)
+        torch.cuda.synchronize()
+        if not (torch.equal(bulk, before) and torch.equal(bulk, per_batch)
+                and torch.equal(plain, per_batch)
+                and torch.equal(checked, per_batch)):
+            raise AssertionError(f"k={k}: the bulk build differs from the "
+                                 "per-batch build or its plain version")
+        chunks += 2
+        del per_batch, checked, plain, bulk, before, acc, batches
+        torch.cuda.empty_cache()
+    return chunks
+
+
 def phase_golden(device: str, tmp: str) -> str:
     """The port's index_and_search on the in-repo fq golden: the .bv bytes
     after its comment line (the comment names the input path, which moved)
@@ -1520,14 +1648,14 @@ def phase_compare_reads(device: str, tmp: str):
     passes = []
 
     def timed(self, index_set, query_sets, **kw):
-        builds, joins = (planes.build_planes.launches,
+        builds, joins = (_build_launches(planes),
                          stream.join_membership.launches)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = real(self, index_set, query_sets, **kw)
         synchronize(self.device)
         wall = time.perf_counter() - t0
-        routes = (planes.build_planes.launches - builds,
+        routes = (_build_launches(planes) - builds,
                   stream.join_membership.launches - joins)
         passes.append((f"{query_sets[0].name} in {index_set.name}", wall,
                         self.last_io_stats.get("host_pack_s", 0.0),
@@ -1974,28 +2102,37 @@ def phase_mesh_kernels(device, gen_seed: int):
         "sectors": sectors, "members": members, "tagged": int(tags.sum())}
 
 
-def kernel_ms(fn, name: str, reps: int) -> float:
-    """Mean device milliseconds of the kernels whose name holds ``name``
-    over ``reps`` calls of fn after one warm-up call, from torch.profiler's
-    device events (the kernel's own time, without the calls' host work)."""
+def device_ms(fn, names) -> dict:
+    """{name: [milliseconds, events]} of the kernels whose name holds each
+    of ``names`` over one call of fn, summed from torch.profiler's device
+    events (the kernels' own time, without the calls' host work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: [0.0, 0] for name in names}
+    for evt in prof.key_averages():
+        for name in names:
+            if name in evt.key:
+                out[name][0] += (getattr(evt, "device_time_total", None)
+                                 or evt.cuda_time_total) / 1e3
+                out[name][1] += evt.count
+    return out
+
+
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over ``reps`` calls of fn after one warm-up call (device_ms)."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if name in evt.key:
-            total_us += (getattr(evt, "device_time_total", None)
-                         or evt.cuda_time_total)
-            count += evt.count
+    total, count = device_ms(lambda: [fn() for _ in range(reps)],
+                             [name])[name]
     if count != reps:
         raise AssertionError(f"torch.profiler saw {count} device events of "
                              f"{name} for {reps} calls")
-    return total_us / count / 1e3
+    return total / count
 
 
 def _dirty_batch_on_card(device, seed: int, n: int, lpad: int):
@@ -2300,13 +2437,12 @@ def phase_default_fill(device: str, rng, tmp: str) -> dict:
             setattr(Engine, name, fn)
     fig["wall_s"] = time.perf_counter() - t0
     fig["peak"] = torch.cuda.max_memory_allocated()
-    fig["launches"] = (planes.build_planes.launches,
-                       planes.probe_planes.launches,
-                       stream.join_membership.launches)
+    fig["launches"] = _plane_launches(planes)[:-1] + (
+        stream.join_membership.launches,)
     if rc != 0:
         raise AssertionError(f"index_and_search exited {rc}")
-    if min(fig["launches"][:2]) == 0 or fig["launches"][2] != 0:
-        raise AssertionError(f"build_planes/probe_planes/join launches "
+    if min(fig["launches"][:-1]) == 0 or fig["launches"][-1] != 0:
+        raise AssertionError(f"{_plane_names(planes)}/join launches "
                              f"{fig['launches']}: the planes must serve")
     if len(seen["fills"]) != 1 or seen["fills"][0] < 0.11:
         raise AssertionError(f"partition fills {seen['fills']}: one "
@@ -2394,12 +2530,10 @@ def phase_default_fill_kernels(device, gen_seed: int) -> dict:
     grouped probe at S = 3 (two more sets filled the same way), each equal
     to its plain version, timed beside its bound with its plane loads split
     into A and B/C/D; the B/C/D loads a cascade could skip (_probe_loads);
-    and torch.sort of plane A's 999.6M int32 word addresses in chunks of
-    SORT_CHUNK (alone, and with the int32 masks gathered by its
-    permutation), the least a sorted build (K9) spends on one of its four
-    planes."""
+    and the bulk build (K9) of the same batches against the fill
+    (phase_bulk_default_fill)."""
     import torch
-    from commet_tpu_torch.core import keys, planes
+    from commet_tpu_torch.core import planes
     k, n, lpad, reads = PLANE_K, PLANE_BATCH, 128, DEFAULT_FILL_READS
     wmax = READ_LEN - k + 1
     words, gen = _plane_reads(device, gen_seed, lpad, reads)
@@ -2513,51 +2647,177 @@ def phase_default_fill_kernels(device, gen_seed: int) -> dict:
                                     + SECTOR * multi_sectors)},
         multi_loads=multi_loads, multi_sectors=multi_sectors,
         multi_tagged=[int(x.sum()) for x in mgot])
-    del slots, others, mgot
+    del slots, others, mgot, p, got_loads
     torch.cuda.empty_cache()
 
-    # plane A's (word, bit mask) stream of the fill at commet_tpu's widths
-    # (bulk_plane_sorted: uint32 words, the uint32 mask riding along),
-    # sorted by word in chunks: torch.sort alone, and with the masks
-    # gathered by its permutation
-    buf_w = torch.empty(SORT_CHUNK, dtype=torch.int32, device=device)
-    buf_m = torch.empty(SORT_CHUNK, dtype=torch.int32, device=device)
-    sort_ms = sort_pair_ms = 0.0
-    n_keys = used = 0
-
-    def sort_chunk(m):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        words_s, perm = torch.sort(buf_w[:m])
-        ev[1].record()
-        masks_s = buf_m[:m][perm]
-        ev[2].record()
-        torch.cuda.synchronize()
-        del words_s, perm, masks_s
-        return ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[2])
-
-    sort_chunk(1 << 20)  # warm-up
-    for b in batches:
-        a, _b = keys.index_keys(keys.unpack_codes_clean(
-            b, lengths[:len(b)], lpad), k)
-        word, bit = planes.plane_addr(a)
-        word, mask = word.to(torch.int32), (1 << bit).to(torch.int32)
-        n_keys += word.numel()
-        while word.numel():
-            take = min(word.numel(), SORT_CHUNK - used)
-            buf_w[used:used + take] = word[:take]
-            buf_m[used:used + take] = mask[:take]
-            word, mask, used = word[take:], mask[take:], used + take
-            if used == SORT_CHUNK:
-                got_ms = sort_chunk(used)
-                sort_ms, sort_pair_ms = (sort_ms + got_ms[0],
-                                         sort_pair_ms + got_ms[1])
-                used = 0
-    if used:
-        got_ms = sort_chunk(used)
-        sort_ms, sort_pair_ms = sort_ms + got_ms[0], sort_pair_ms + got_ms[1]
-    fig.update(sort_ms=sort_ms, sort_pair_ms=sort_pair_ms, sort_keys=n_keys)
+    fig["bulk"] = phase_bulk_default_fill(pl, batches, lengths, lpad,
+                                          fill_ms)
     return fig
+
+
+def _bulk_fill(pl, batches, lengths, lpad: int, chunk: int, stats=None):
+    """``pl`` zeroed, then ``batches`` (clean [n, lpad / 16] code words of
+    100 bp reads) built into it by planes.BulkChunk as Engine.build_planes
+    cuts a partition: a chunk flushed once it reaches ``chunk`` window
+    slots. With ``stats``, adds each chunk's entries, its bins that hold
+    entries and the chunks to it. Returns (wall s, CUDA-event ms)."""
+    import torch
+    from commet_tpu_torch.core import planes
+    pl.zero_()
+    acc = planes.BulkChunk(pl, PLANE_K)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def flush():
+        if stats is not None:
+            stats["entries"] += int(acc.counts.sum())
+            stats["bins"] += int((acc.counts > 0).sum())
+            stats["chunks"] += 1
+        acc.flush()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for b in batches:
+        acc.add(b, lengths[:len(b)], True, lpad)
+        if acc.slots >= chunk:
+            flush()
+    if acc.batches:
+        flush()
+    end.record()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def phase_bulk_default_fill(pl, batches, lengths, lpad: int,
+                            fill_ms: float) -> dict:
+    """Phase 14's bulk build (K9) of the default partition whose batches
+    the atomic fill built into ``pl`` in ``fill_ms``: the whole build in
+    the engine's chunks (engine.BULK_CHUNK_WIDE window slots) timed by the
+    host clock and CUDA events, each kernel's device ms from torch.profiler
+    beside its bound (the bytes of its launches: the batches read, the
+    counts or cursors read and written, the entries written or read once,
+    each plane word of a bin that holds entries read and written once a
+    chunk), planes equal to ``pl``; the first chunk's kernels against their
+    plain versions (_bulk_chunk_check) and the plain versions timed, one
+    batch or one chunk; torch.sort of that chunk's four planes' keys (the
+    library yardstick); the build again beside the two resident sets with
+    the cohorts' chunk (engine.BULK_CHUNK_BESIDE), equal, with the peak of
+    each build; the faster route."""
+    import torch
+    from commet_tpu_torch.core import keys, planes
+    from commet_tpu_torch.engine import engine
+    k, device = PLANE_K, pl.device
+    chunk = engine.BULK_CHUNK_WIDE
+    _sb, sw, ns = planes.bulk_layout(k)
+    bulk = planes.alloc_planes(k, device)
+    stats = {"entries": 0, "bins": 0, "chunks": 0}
+    _bulk_fill(bulk, batches, lengths, lpad, chunk, stats)  # warm-up
+    if not torch.equal(bulk, pl):
+        raise AssertionError("the bulk build's planes differ from the "
+                             "atomic fill's")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall_s, ms = _bulk_fill(bulk, batches, lengths, lpad, chunk)
+    peak = torch.cuda.max_memory_allocated()
+    names = ("bulk_hist_kernel", "bulk_scatter_kernel", "bulk_apply_kernel")
+    prof = device_ms(lambda: _bulk_fill(bulk, batches, lengths, lpad, chunk),
+                     names)
+    launches = [len(batches), len(batches), stats["chunks"]]
+    # the profiler can miss the first device event of its window: each
+    # kernel's mean is over the events it saw
+    seen = [prof[name][1] for name in names]
+    if not all(0 < got <= n for got, n in zip(seen, launches)):
+        raise AssertionError(f"torch.profiler saw {prof} for launches "
+                             f"{launches}")
+    mean_ms = [prof[name][0] / got for name, got in zip(names, seen)]
+    if not torch.equal(bulk, pl):
+        raise AssertionError("the timed bulk build differs from the atomic "
+                             "fill")
+    batch_bytes = sum(b.numel() * 4 + len(b) * 4 for b in batches)
+    vec = 4 * ns * 8
+    entry_bytes = 4 * stats["entries"]  # 4 B an entry, 4 entries a window
+    bounds = [bound_ms(batch_bytes + 2 * vec * len(batches)),
+              bound_ms(batch_bytes + 2 * vec * len(batches) + entry_bytes),
+              bound_ms(entry_bytes + stats["chunks"] * (vec + 8)
+                       + 2 * 4 * sw * stats["bins"])]
+
+    # the first chunk: each kernel against its plain version, the plain
+    # versions timed, and torch.sort of the chunk's plane-tagged keys
+    first = [(b, lengths[:len(b)], True, lpad) for b in batches[:-(
+        -chunk // planes.bulk_slots(batches[0], lpad, k))]]
+    check = planes.alloc_planes(k, device)
+    _bulk_chunk_check(check, first, k)
+    del check
+    bt0 = first[0]
+    counts = planes.bulk_histogram_plain(*bt0, k)
+    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    bins = torch.empty(4 * planes.bulk_slots(bt0[0], lpad, k),
+                       dtype=torch.int32, device=device)
+    plain_ms = [cuda_ms(lambda: planes.bulk_histogram_plain(*bt0, k), 3),
+                cuda_ms(lambda: planes.bulk_scatter_plain(
+                    bins, offsets[:-1].clone(), *bt0, k), 3)]
+    counts = torch.zeros(4 * ns, dtype=torch.int64, device=device)
+    for bt in first:
+        planes.bulk_histogram(counts, *bt, k)
+    offsets[1:] = torch.cumsum(counts, 0)
+    cursor = offsets[:-1].clone()
+    bins = torch.empty(4 * sum(planes.bulk_slots(bt[0], lpad, k)
+                               for bt in first), dtype=torch.int32,
+                       device=device)
+    for bt in first:
+        planes.bulk_scatter(bins, cursor, *bt, k)
+    target = planes.alloc_planes(k, device)
+    planes.bulk_apply_plain(target, bins, offsets, k)  # warm-up
+    plain_ms.append(_events_ms([lambda: planes.bulk_apply_plain(
+        target, bins, offsets, k)]))
+    del target, bins, cursor
+    torch.cuda.empty_cache()
+    tagged = []
+    for bt in first:
+        a, b = keys.index_keys(keys.unpack_codes_clean(bt[0], bt[1], lpad), k)
+        tagged += [(p << k) | key
+                   for p, key in enumerate(planes.four_plane_keys(a, b))]
+    tagged = torch.cat(tagged)
+    torch.sort(tagged[:1 << 20])  # warm-up
+    sort_ms = _events_ms([lambda: torch.sort(tagged)])
+    n_sorted = tagged.numel()
+    del tagged
+    torch.cuda.empty_cache()
+
+    # a set built beside the two resident sets with the cohorts' chunk
+    half = planes.alloc_planes(k, device)
+    half_held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    half_wall, half_ms = _bulk_fill(half, batches, lengths, lpad,
+                                    engine.BULK_CHUNK_BESIDE)
+    half_peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(half, pl):
+        raise AssertionError("the bulk build with the cohorts' chunk "
+                             "differs from the atomic fill")
+    del half, bulk
+    torch.cuda.empty_cache()
+    kernels = {}
+    for key, mean, count, bound, plain in zip(
+            ("hist", "scatter", "apply"), mean_ms, launches, bounds,
+            plain_ms):
+        kernels[key] = {"max_abs_err": 0, "ms": mean, "plain_ms": plain,
+                        "bound_ms": bound / count}
+    return {"wall_s": wall_s, "ms": ms, "fill_ms": fill_ms,
+            "chunk": chunk, "chunks": stats["chunks"],
+            "windows": stats["entries"] // 4, "bins": stats["bins"],
+            "kernels": kernels, "totals": {
+                key: mean * n for key, mean, n in zip(
+                    ("hist", "scatter", "apply"), mean_ms, launches)},
+            "bounds": bounds, "launches": launches, "profiled": seen,
+            "first_batches": len(first), "sort_ms": sort_ms,
+            "sorted": n_sorted, "held": held, "peak": peak,
+            "beside_chunk": engine.BULK_CHUNK_BESIDE, "half_wall_s": half_wall,
+            "half_ms": half_ms, "half_held": half_held,
+            "half_peak": half_peak,
+            "faster": "bulk" if ms < fill_ms else "per-batch",
+            "default": "bulk" if engine.CARD_BULK_BUILD else "per-batch"}
 
 
 def run_phase_default_fill(device, rng) -> dict:
@@ -2565,6 +2825,7 @@ def run_phase_default_fill(device, rng) -> dict:
     fasta files, about 3.5 GB, go with it) and phase_default_fill_kernels,
     logs their lines and the K7 and K9 figures."""
     import torch
+    from commet_tpu_torch.core import planes
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         pair = phase_default_fill("cuda", rng, tmp)
@@ -2580,7 +2841,8 @@ def run_phase_default_fill(device, rng) -> dict:
         f"search {sp['search']:.3f} s (host pack {sp['host_pack']:.3f} s, "
         f"dispatch waited {sp['host_block']:.3f} s), rest {sp['rest']:.3f} "
         f"s; {pair['rate']:.0f} reads/s searched; {pair['counters']}; "
-        f"build_planes/probe_planes/join launches {pair['launches']}; "
+        f"{_plane_names(planes).rsplit('/', 1)[0]}/join launches "
+        f"{pair['launches']}; "
         f"max_memory_allocated {pair['peak']} B; every fragment read "
         f"tagged, {pair['chance']} chance tags (expected "
         f"{pair['chance_expected']:.1f} from the planes' hit rates on "
@@ -2600,17 +2862,22 @@ def run_phase_default_fill(device, rng) -> dict:
         + ", ".join(f"{name} {ms:.3f}" for name, ms in tr["top"])
         + f"; unprofiled walls: prefetch {walls['prefetched']:.3f} s, "
         f"COMMET_TPU_PREFETCH=0 {walls['inline']:.3f} s; equal tags")
+    fk = run_phase_default_fill_kernels(device, t0)
+    return {"pair": {key: val for key, val in pair.items()
+                     if key != "trace"}, "trace": tr, "kernels": fk}
+
+
+def run_phase_default_fill_kernels(device, t0: float) -> dict:
+    """Phase 14's kernels at 11.6% (phase_default_fill_kernels): logs
+    their lines, the bulk build's and the K7 and build decisions; ``t0``
+    the phase's start."""
+    import torch
     fk = phase_default_fill_kernels(device, 33)
     torch.cuda.empty_cache()
     ld, ml = fk["loads"], fk["multi_loads"]
     total = ld["a"] + ld["bcd"]
     skip_share = ld["skippable"] / total
-    # torch.sort's radix passes move a 4-byte word and an 8-byte index per
-    # entry where commet_tpu's pair sort moves the word and a 4-byte mask:
-    # 8/12 of the bytes, the least its sort could take if bytes bound it
-    k9_ms = 4 * fk["sort_ms"]
-    k9_pair_ms = k9_ms * 8 / 12
-    pb, mb = fk["probe"], fk["multi"]
+    pb, mb, bk = fk["probe"], fk["multi"], fk["bulk"]
     log(f"phase 14 kernels at 11.6%: {DEFAULT_FILL_READS} random reads "
         f"({fk['build_windows']} windows) built into a 4 GiB set in "
         f"{fk['fill_s']:.3f} s ({fk['fill_ms']:.3f} ms by CUDA events), "
@@ -2627,21 +2894,40 @@ def run_phase_default_fill(device, rng) -> dict:
         f"equal to its plain version's, " + _kernel_figures(mb)
         + f", {ml['a']} A and {ml['bcd']} B/C/D loads on "
         f"{fk['multi_sectors']} distinct sectors")
+    log(f"phase 14 bulk build (K9): the same {DEFAULT_FILL_READS} reads "
+        f"({bk['windows']} windows) in chunks of {bk['chunk']} window slots "
+        f"({bk['chunks']} chunks, {bk['bins']} bins holding entries) in "
+        f"{bk['wall_s']:.3f} s, {bk['ms']:.3f} ms by CUDA events, planes "
+        f"equal to the atomic fill's; device ms (torch.profiler) and bound "
+        f"ms of all launches: "
+        + ", ".join(f"{key} {bk['totals'][key]:.3f} (bound {bound:.3f}, "
+                    f"{100 * bound / bk['totals'][key]:.1f}%; {n} launches, "
+                    f"{got} profiled)"
+                    for key, bound, n, got in zip(
+                        ("hist", "scatter", "apply"), bk["bounds"],
+                        bk["launches"], bk["profiled"]))
+        + f"; per launch: "
+        + "; ".join(f"{key} " + _kernel_figures(bk["kernels"][key])
+                    for key in ("hist", "scatter", "apply"))
+        + f" (plain: one batch, one batch, the first chunk of "
+        f"{bk['first_batches']} batches, each kernel equal to its plain "
+        f"version there); torch.sort of that chunk's {bk['sorted']} "
+        f"plane-tagged int64 keys {bk['sort_ms']:.3f} ms; "
+        f"max_memory_allocated {bk['peak']} B ({bk['held']} B held before); "
+        f"beside them with the cohorts' chunk of {bk['beside_chunk']} slots: "
+        f"{bk['half_wall_s']:.3f} s, {bk['half_ms']:.3f} ms, equal planes, "
+        f"max_memory_allocated {bk['half_peak']} B ({bk['half_held']} B "
+        f"held before)")
     log(f"phase 14 decisions: K7: {ld['skippable']} of the probe's {total} "
         f"plane loads are B/C/D loads past the {CASCADE_V} leftmost and "
         f"{CASCADE_V} rightmost A hits of their strand "
         f"({100 * skip_share:.2f}%; close under 15%: "
-        f"{'close' if skip_share < 0.15 else 'queue'}); K9: torch.sort of "
-        f"plane A's {fk['sort_keys']} int32 word addresses in chunks of "
-        f"{SORT_CHUNK} {fk['sort_ms']:.3f} ms ({fk['sort_pair_ms']:.3f} ms "
-        f"with the int32 masks gathered by its permutation), x 4 planes "
-        f"{k9_ms:.3f} ms, {k9_pair_ms:.3f} ms at the 8 of 12 bytes an "
-        f"entry a (word, mask) pair sort moves, against the atomic build's "
-        f"fill {fk['fill_ms']:.3f} ms ("
-        f"{'close' if k9_pair_ms > fk['fill_ms'] else 'queue'}) "
+        f"{'close' if skip_share < 0.15 else 'queue'}); the build of one "
+        f"default partition: bulk {bk['ms']:.3f} ms, per-batch atomic fill "
+        f"{fk['fill_ms']:.3f} ms: faster {bk['faster']}, the engine's card "
+        f"default {bk['default']} (engine.CARD_BULK_BUILD) "
         f"({time.perf_counter() - t0:.3f} s for phase 14)")
-    return {"pair": {key: val for key, val in pair.items()
-                     if key != "trace"}, "trace": tr, "kernels": fk}
+    return fk
 
 
 def _pair_sets(tmp: str, names):
@@ -2859,7 +3145,8 @@ def _kernel_fns(stream, planes, tfilter):
             planes.build_planes, planes.probe_planes,
             planes.probe_planes_multi, planes.build_planes_range,
             planes.probe_planes_part_a, planes.probe_planes_part,
-            tfilter.class_counts_packed)
+            tfilter.class_counts_packed, planes.bulk_histogram,
+            planes.bulk_scatter, planes.bulk_apply)
 
 
 def zero_counts(stream, planes):
@@ -2869,9 +3156,31 @@ def zero_counts(stream, planes):
         fn.launches = 0
 
 
+def _build_fns(planes):
+    """The wrappers of the dense-plane build the card takes by default
+    (engine.CARD_BULK_BUILD): the bulk build's three, or the per-batch
+    build."""
+    from commet_tpu_torch.engine import engine
+    if engine.CARD_BULK_BUILD:
+        return (planes.bulk_histogram, planes.bulk_scatter, planes.bulk_apply)
+    return (planes.build_planes,)
+
+
+def _build_launches(planes) -> int:
+    """Launches of the default build's kernels, the fewest of them."""
+    return min(fn.launches for fn in _build_fns(planes))
+
+
 def _plane_launches(planes):
-    return (planes.build_planes.launches, planes.probe_planes.launches,
-            planes.probe_planes_multi.launches)
+    """Launches of the default build's kernels, of probe_planes and of
+    probe_planes_multi."""
+    return tuple(fn.launches for fn in _build_fns(planes)) + (
+        planes.probe_planes.launches, planes.probe_planes_multi.launches)
+
+
+def _plane_names(planes) -> str:
+    return "/".join(fn.__name__ for fn in _build_fns(planes)) + (
+        "/probe_planes/probe_planes_multi")
 
 
 def run_phase_plane_kernels(device) -> dict:
@@ -3034,12 +3343,13 @@ def main(argv=None) -> int:
     mesh_kernels_only = args == ["--mesh-kernels"]
     class_counts_only = args == ["--class-counts"]
     default_fill_only = args == ["--default-fill"]
+    bulk_build_only = args == ["--bulk-build"]
     if args and not (plane_kernels_only or join_kernels_only
                      or mesh_kernels_only or class_counts_only
-                     or default_fill_only):
+                     or default_fill_only or bulk_build_only):
         print("usage: chip_smoke.py [--plane-kernels | --join-kernels | "
-              "--mesh-kernels | --class-counts | --default-fill]",
-              file=sys.stderr)
+              "--mesh-kernels | --class-counts | --default-fill | "
+              "--bulk-build]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "commet_tpu_torch")):
@@ -3053,6 +3363,7 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     from commet_tpu_torch.core import _cuda, planes, stream
+    from commet_tpu_torch.core import filter as tfilter
     from commet_tpu_torch.device import resolve_device
 
     device = resolve_device("cuda")
@@ -3092,6 +3403,12 @@ def main(argv=None) -> int:
         log(json.dumps(run_phase_default_fill(device,
                                               np.random.default_rng(14)),
                        default=str))
+        return 0
+
+    if bulk_build_only:
+        fk = run_phase_default_fill_kernels(device, time.perf_counter())
+        log(json.dumps({key: fk[key] for key in ("fill_ms", "build",
+                                                 "bulk")}))
         return 0
 
     if class_counts_only:
@@ -3244,6 +3561,15 @@ def main(argv=None) -> int:
         f"dirty and clean batches of reads shorter than k, 100 and 300 bp "
         f"({cases} grouped cases) ({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    chunks = phase_bulk_edges(device, np.random.default_rng(10))
+    log(f"phase bulk edges: bulk_histogram, bulk_scatter and bulk_apply "
+        f"equal to their plain versions and BulkChunk to the per-batch build "
+        f"and bulk_build_planes_plain at k in {EDGE_K} on the same reads in "
+        f"{chunks} chunks (three 2,000-read batches a chunk, a smaller last "
+        f"one, one with no complete window) "
+        f"({time.perf_counter() - t0:.3f} s)")
+    torch.cuda.empty_cache()
     mk = run_phase_mesh_kernels(device)
     torch.cuda.empty_cache()
     cc = run_phase_class_counts(device)
@@ -3257,15 +3583,18 @@ def main(argv=None) -> int:
             "cuda", rng, tmp, PLANE_SET_READS, PLANE_K, "plane cohorts",
             2 * PLANE_K, n_free_fragments=True)
         plane_counts = _plane_launches(planes)
+        main_planes = {fn.__name__: fn.launches for fn in _kernel_fns(
+            stream, planes, tfilter)}
         if min(plane_counts) == 0:
-            raise AssertionError(f"the planes main path launched build/"
-                                 f"probe/probe_multi {plane_counts} times")
+            raise AssertionError(f"the planes main path launched "
+                                 f"{_plane_names(planes)} {plane_counts} "
+                                 "times")
         for what, secs in calls:
             log(f"  {what}: {secs:.3f} s")
         log(f"phase planes main path: commet -k {PLANE_K} -t {T} on 4 x "
             f"{PLANE_SET_READS} reads, plane cohorts, S up to {s_max}, "
-            f"matrix_plain rows {plain.tolist()}, build_planes/probe_planes/"
-            f"probe_planes_multi launches {plane_counts}, join/join_multi "
+            f"matrix_plain rows {plain.tolist()}, {_plane_names(planes)} "
+            f"launches {plane_counts}, join/join_multi "
             f"launches {stream.join_membership.launches}/"
             f"{stream.join_membership_multi.launches}, max_memory_allocated "
             f"{peak} B ({time.perf_counter() - t0:.3f} s)")
@@ -3273,21 +3602,24 @@ def main(argv=None) -> int:
         zero_counts(stream, planes)
         t0 = time.perf_counter()
         passes, same = phase_compare_reads("cuda", tmp)
-        cr_counts = (planes.build_planes.launches,
-                     planes.probe_planes.launches,
+        cr_counts = (_build_launches(planes), planes.probe_planes.launches,
                      stream.join_membership.launches)
+        build_names = "/".join(fn.__name__ for fn in _build_fns(planes))
         if min(cr_counts) == 0:
-            raise AssertionError(f"compare_reads launched build_planes/"
-                                 f"probe_planes/join {cr_counts} times")
+            raise AssertionError(f"compare_reads launched {build_names} (the "
+                                 f"fewest)/probe_planes/join {cr_counts} "
+                                 "times")
         for what, wall, pack, peak, (builds, joins) in passes:
             log(f"  compare_reads pass {what}: {wall:.3f} s, host pack "
                 f"{pack:.3f} s of the last search, max_memory_allocated "
-                f"{peak} B, build_planes/join launches {builds}/{joins}")
+                f"{peak} B, {build_names} (the fewest)/join launches "
+                f"{builds}/{joins}")
         log(f"phase compare_reads: -k {PLANE_K} -t {T} on sets 1 and 2 of 4 "
             f"x {PLANE_SET_READS} reads with the driver's filters, pass 1 on "
             f"the planes, passes 2 and 3 on sorted indexes; "
-            f"{' and '.join(same)} equal to the driver's; build_planes/probe_planes/join launches "
-            f"{cr_counts} ({time.perf_counter() - t0:.3f} s)")
+            f"{' and '.join(same)} equal to the driver's; {build_names} (the "
+            f"fewest)/probe_planes/join launches {cr_counts} "
+            f"({time.perf_counter() - t0:.3f} s)")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         mesh = smoke_mesh(device, MESH_N)
@@ -3295,7 +3627,9 @@ def main(argv=None) -> int:
             ("dp", {"mesh": mesh, "mesh_mode": "dp"}),
             ("plane", {"mesh": mesh, "mesh_mode": "plane"})])
         mesh_launches = pair["plane"][3]
-        if not pair["dp"][3].get("probe_planes") or min(
+        # a mesh never takes the bulk build: dp builds batch by batch
+        dp_builds = pair["dp"][3].get("build_planes", 0)
+        if not pair["dp"][3].get("probe_planes") or not dp_builds or min(
                 mesh_launches.get("build_planes_range", 0),
                 mesh_launches.get("probe_planes_part_a", 0),
                 mesh_launches.get("probe_planes_part", 0)) == 0:
@@ -3308,7 +3642,8 @@ def main(argv=None) -> int:
             + _mesh_walls(pair) + f" ({time.perf_counter() - t0:.3f} s)")
 
     torch.cuda.empty_cache()
-    run_phase_default_fill(device, np.random.default_rng(14))
+    bulk = run_phase_default_fill(device, np.random.default_rng(14))[
+        "kernels"]["bulk"]
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if loaded:
@@ -3331,12 +3666,12 @@ def main(argv=None) -> int:
          "plain_ms": multi["plain_ms"], "bound_ms": multi["bound_ms"],
          **NO_LIBRARY}] + [
         {"name": name, "route": "cuda", "source": PLANES_SOURCE,
-         "replaces": replaces, "launches": launched, **pk[key],
-         **NO_LIBRARY}
-        for name, replaces, launched, key in zip(
+         "replaces": replaces, "launches": main_planes[name] or dp_builds,
+         **pk[key], **NO_LIBRARY}
+        for name, replaces, key in zip(
             ("build_planes", "probe_planes", "probe_planes_multi"),
             (BUILD_REPLACES, PROBE_REPLACES, PROBE_MULTI_REPLACES),
-            plane_counts, ("build", "probe", "multi"))] + [
+            ("build", "probe", "multi"))] + [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launched, **mk[key],
          **NO_LIBRARY}
@@ -3351,7 +3686,15 @@ def main(argv=None) -> int:
          "replaces": CLASS_COUNTS_REPLACES, "launches": cc["launches"],
          **{key: cc["batch"][key] for key in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms")},
-         **NO_LIBRARY}]}))
+         **NO_LIBRARY}] + [
+        {"name": name, "route": "cuda", "source": PLANES_SOURCE,
+         "replaces": replaces, "launches": main_planes[name],
+         **bulk["kernels"][key], "bound_by": "bytes",
+         "library_ms": bulk["sort_ms"] if key == "scatter" else None}
+        for name, replaces, key in (
+            ("bulk_histogram", BULK_HIST_REPLACES, "hist"),
+            ("bulk_scatter", BULK_SCATTER_REPLACES, "scatter"),
+            ("bulk_apply", BULK_APPLY_REPLACES, "apply"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

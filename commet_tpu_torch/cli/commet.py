@@ -247,11 +247,13 @@ def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng,
     (the free memory less the build and probe workspace, and
     COMMET_TPU_PLANES_BUDGET when set: Engine._planes_budget), each query set is probed against its cohort predecessors with one
     upload per batch (Engine.search_multi_set_planes), then the refinement
-    runs pairwise. Pair results equal the classic rounds'. Returns False,
-    after printing why, when fewer than two index sets need the step or two
-    plane sets do not fit the budget; the caller then runs the classic
-    rounds. Counterpart of commet_tpu's run_plane_cohorts (its
-    COMMET_TPU_BULK_CHUNK workspace halving has nothing to halve here)."""
+    runs pairwise. A set built beside resident plane sets takes the smaller
+    bulk-build chunk (Engine.bulk_chunk(beside_residents=True): 2^26 window
+    slots at k >= 32 unless COMMET_TPU_BULK_CHUNK is set), passed to
+    Engine.build_resident_planes. Pair results equal the classic rounds'.
+    Returns False, after printing why, when fewer than two index sets need
+    the step or two plane sets do not fit the budget; the caller then runs
+    the classic rounds. Counterpart of commet_tpu's run_plane_cohorts."""
     env_budget = os.environ.get("COMMET_TPU_PLANES_BUDGET")
     budget = eng._planes_budget(float(env_budget) if env_budget else None)
     max_s = int(os.environ.get("COMMET_TPU_PLANE_COHORT_MAX", "8"))
@@ -266,7 +268,9 @@ def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng,
         cohort, total = [], 0
         while i < end and len(cohort) < max_s:
             rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
-            r = eng.build_resident_planes(rs, budget=budget - total)
+            r = eng.build_resident_planes(
+                rs, budget=budget - total,
+                bulk_chunk=eng.bulk_chunk(beside_residents=bool(cohort)))
             if r is None:
                 break
             cohort.append(r)

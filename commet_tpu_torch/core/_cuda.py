@@ -62,7 +62,17 @@ _SIGNATURES = {
                "commet_probe_planes_part": [
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, *_BATCH,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]},
+                   ctypes.c_void_p, ctypes.c_void_p],
+               "commet_bulk_hist": [ctypes.c_void_p, ctypes.c_int64,
+                                    ctypes.c_int, *_BATCH, ctypes.c_int,
+                                    ctypes.c_void_p],
+               "commet_bulk_scatter": [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int64, ctypes.c_int, *_BATCH,
+                                       ctypes.c_int, ctypes.c_void_p],
+               "commet_bulk_apply": [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p]},
     "filter": {"commet_class_counts": [ctypes.c_void_p, ctypes.c_int64,
                                        ctypes.c_void_p, ctypes.c_int64,
                                        ctypes.c_void_p, ctypes.c_int64,

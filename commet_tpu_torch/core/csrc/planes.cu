@@ -7,11 +7,17 @@
 //
 // Replaces, in commet_tpu/core/kernels.py:
 //   - commet_build_planes: K4, build_chunk / build_chunk_packed(_clean) /
-//     _build_chunk_impl (kernels.py:670-746), and K9's bulk build
-//     (bulk_plane_sorted / bulk_scatter_set / bulk_or_plane, 768-827). The
+//     _build_chunk_impl (kernels.py:670-746), the per-batch build. The
 //     TPU builds by sort -> segmented OR -> gather of the existing bits ->
 //     scatter-add, because it has no scatter-OR; here every complete forward
 //     window does one atomicOr per plane.
+//   - commet_bulk_hist, commet_bulk_scatter, commet_bulk_apply: K9, the bulk
+//     build (bulk_plane_sorted / bulk_scatter_set / bulk_or_plane,
+//     kernels.py:771-827, driven by Engine._build_planes_bulk), which writes
+//     each plane word once per chunk of windows. The TPU sorts each plane's
+//     (word, mask) stream, ORs runs of equal words and scatter-sets them,
+//     because its scatters with gather descriptors are slow. Here a
+//     counting sort into plane slices does it without a full sort (below).
 //   - commet_probe_planes: K5, search_batch(_fwd/_rc)(_packed) with
 //     _membership and greedy_ge (kernels.py:295-451), and with them K2
 //     (unpack_codes(_clean), 88-96, 645-653) and K3 (window_keys, 190-260):
@@ -89,6 +95,32 @@
 //     Measured on an H100, both probes run at the card's random-gather rate
 //     (PERF.md): their time follows the count of plane loads, which is why
 //     no load is issued that the greedy count rules out.
+//   - the bulk build: a chunk's windows (2^27 window slots at COMMET's
+//     default k = 33) against 4 GiB of planes. The per-batch build's random
+//     atomics each cost a sector read and write in device memory (22% of
+//     their bytes bound). Here a plane is cut into slices of S = 2^14
+//     words (64 KiB of shared memory, two apply blocks an SM) and a
+//     window's bit in plane p goes to bin p * nslices + (key >> 19) as its
+//     slice-relative address key & (2^19 - 1) (uint32). commet_bulk_hist
+//     counts each batch's entries per bin in shared memory (a block row a
+//     plane and 16,384 bins); the caller scans the chunk's counts into bin
+//     offsets; commet_bulk_scatter appends each entry to its bin: a block
+//     (a row a plane and 8,192 bins) counts its entries per bin, takes a
+//     run of each bin's indices with one atomic and fills it, so a bin
+//     costs one device-wide atomic a block (a cursor an entry, even
+//     aggregated over a warp, ran at the L2's atomic rate); commet_bulk_apply
+//     runs a block per bin, loads the slice once, ORs the bin's bits in
+//     with shared-memory atomics and stores it once. Per chunk: the
+//     entries written and read once (4 B a plane a window), each plane
+//     word read and written once, the batches read once a grid row (at
+//     k = 33 the histogram's 4 rows, the scatter's 8 rows twice).
+//     The scatter's writes are what is left: a block's run of a bin is a
+//     few entries, so they land as scattered 4-byte writes, about the
+//     card's random-access rate. Plane D's keys (a | b) are skewed, so its
+//     last bins are the largest: the apply runs the bins from the last
+//     down. Measured on an H100 (PERF.md): 128 KiB slices were slower,
+//     and so were 4 MiB regions ORed in with L2 atomics in region order
+//     (the L2's atomic rate, not the plane's bytes, bound them).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -478,6 +510,172 @@ __global__ void probe_part_veto_kernel(const uint32_t* __restrict__ shard,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bulk build (K9). A bin is one slice of one plane: bin = plane *
+// nslices + (key >> sb), entry = key & (2^sb - 1), bit entry & 31 of word
+// entry >> 5 of the slice; sb = 5 + log2(slice words).
+
+constexpr int kHistBins = 16384;     // bins one histogram block counts
+constexpr int kScatterBins = 8192;   // bins one scatter block places
+constexpr int kBulkThreads = 1024;   // a histogram or scatter block's reads
+constexpr int kHistBlocks = 32;      // blocks of a histogram row at most
+constexpr int kScatterBlocks = 128;  // blocks of a scatter row at most
+constexpr int kApplyThreads = 1024;
+
+__device__ __forceinline__ uint64_t plane_key(int p, uint64_t a, uint64_t b) {
+  return p == 0 ? a : p == 1 ? b : p == 2 ? (a ^ b) : (a | b);
+}
+
+// Rolls the forward keys of read `row` over its positions as build_kernel
+// does and calls f(ok, ka, kb) at each, ok when the k bases ending there
+// are all valid. Warp-wide: the lanes of a warp hold rows row0 .. row0 + 31
+// (a row at or past bt.b has no valid position) and make the same calls, up
+// to the warp's longest read.
+template <class F>
+__device__ __forceinline__ void rolled_windows(const Batch& bt, int64_t row,
+                                               int k, F&& f) {
+  const bool live = row < bt.b;
+  ReadCursor rc(bt, live ? row : 0);
+  if (!live) rc.end = 0;
+  const int wend = __reduce_max_sync(kFull, rc.end);
+  const uint64_t kmask = low_mask(k);
+  uint64_t ka = 0, kb = 0;
+  int run = 0;
+  for (int p = 0; p < wend; ++p) {
+    const int c = p < rc.end ? rc.code(p) : -1;
+    if (c < 0) {
+      run = 0;
+    } else {
+      ka = ((ka << 1) | (uint64_t)(c >> 1)) & kmask;
+      kb = ((kb << 1) | (uint64_t)(c & 1)) & kmask;
+      if (run < k) ++run;
+    }
+    f(run >= k, ka, kb);
+  }
+}
+
+// The rows of the bulk grids: row blockIdx.y is plane blockIdx.y / ranges
+// and its bins [lo, lo + n), lo = (blockIdx.y % ranges) * width.
+struct BinRange {
+  int plane;
+  int64_t lo;
+  int n;
+  __device__ BinRange(int64_t nslices, int ranges, int width) {
+    plane = blockIdx.y / ranges;
+    lo = (int64_t)(blockIdx.y % ranges) * width;
+    n = (int)(nslices - lo < width ? nslices - lo : width);
+  }
+  // the key's bin less lo, or -1 outside the range
+  __device__ __forceinline__ int64_t bin(uint64_t key, int sb) const {
+    const int64_t b = (int64_t)(key >> sb) - lo;
+    return b >= 0 && b < n ? b : -1;
+  }
+};
+
+// A thread per read: the block counts the batch's entries in its row's bins
+// in shared memory (hist: [kHistBins] uint32), then adds its nonzero counts
+// to counts[plane * nslices + bin]. Few blocks a row, each striding over
+// many reads, keep those adds few (the scatter measured slower so).
+__global__ void __launch_bounds__(kBulkThreads)
+    bulk_hist_kernel(unsigned long long* __restrict__ counts, int64_t nslices,
+                     int ranges, int sb, Batch bt, int k) {
+  extern __shared__ uint32_t hist[];
+  const BinRange r(nslices, ranges, kHistBins);
+  for (int i = threadIdx.x; i < r.n; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t row0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       row0 < bt.b; row0 += step)
+    rolled_windows(bt, row0 + (threadIdx.x & 31), k,
+                   [&](bool ok, uint64_t a, uint64_t b) {
+                     const int64_t bin = r.bin(plane_key(r.plane, a, b), sb);
+                     if (ok && bin >= 0) atomicAdd(hist + bin, 1u);
+                   });
+  __syncthreads();
+  unsigned long long* out = counts + r.plane * nslices + r.lo;
+  for (int i = threadIdx.x; i < r.n; i += blockDim.x)
+    if (hist[i]) atomicAdd(out + i, (unsigned long long)hist[i]);
+}
+
+// A thread per read, rolled twice: the block counts its entries in its
+// row's bins in shared memory (run: [kScatterBins] uint64), takes a run of
+// each bin's indices with one atomicAdd on the bin's cursor, then places
+// each entry at the next index of its bin's run (a shared-memory atomic).
+// A bin costs one device-wide atomic a block, so plane D's hot bins queue
+// in shared memory, not at one L2 address.
+__global__ void __launch_bounds__(kBulkThreads)
+    bulk_scatter_kernel(unsigned long long* __restrict__ cursor,
+                        uint32_t* __restrict__ bins, int64_t nslices,
+                        int ranges, int sb, Batch bt, int k) {
+  extern __shared__ unsigned long long run[];
+  const BinRange r(nslices, ranges, kScatterBins);
+  const uint64_t emask = low_mask(sb);
+  for (int i = threadIdx.x; i < r.n; i += blockDim.x) run[i] = 0;
+  __syncthreads();
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  const int lane = threadIdx.x & 31;
+  for (int64_t row0 = first; row0 < bt.b; row0 += step)
+    rolled_windows(bt, row0 + lane, k, [&](bool ok, uint64_t a, uint64_t b) {
+      const int64_t bin = r.bin(plane_key(r.plane, a, b), sb);
+      if (ok && bin >= 0) atomicAdd(run + bin, 1ull);
+    });
+  __syncthreads();
+  unsigned long long* cur = cursor + r.plane * nslices + r.lo;
+  for (int i = threadIdx.x; i < r.n; i += blockDim.x)
+    if (run[i]) run[i] = atomicAdd(cur + i, run[i]);
+  __syncthreads();
+  for (int64_t row0 = first; row0 < bt.b; row0 += step)
+    rolled_windows(bt, row0 + lane, k, [&](bool ok, uint64_t a, uint64_t b) {
+      const uint64_t key = plane_key(r.plane, a, b);
+      const int64_t bin = r.bin(key, sb);
+      if (ok && bin >= 0)
+        bins[atomicAdd(run + bin, 1ull)] = (uint32_t)(key & emask);
+    });
+}
+
+// A block per bin, the last bin first: bin = plane * nslices + j holds
+// words [j * sw, (j + 1) * sw) of its plane. The slice is loaded into
+// shared memory once, the entries bins[offsets[bin] .. offsets[bin + 1])
+// are ORed in with shared-memory atomics, and the slice is stored once. A
+// bin without entries touches nothing.
+__global__ void __launch_bounds__(kApplyThreads)
+    bulk_apply_kernel(uint32_t* __restrict__ planes, int64_t pw,
+                      int64_t nslices, int64_t sw,
+                      const uint32_t* __restrict__ bins,
+                      const unsigned long long* __restrict__ offsets) {
+  extern __shared__ uint4 slice4[];
+  uint32_t* slice = reinterpret_cast<uint32_t*>(slice4);
+  const int64_t bin = (int64_t)gridDim.x - 1 - blockIdx.x;
+  const unsigned long long lo = offsets[bin], hi = offsets[bin + 1];
+  if (lo == hi) return;
+  uint32_t* words = planes + (bin / nslices) * pw + (bin % nslices) * sw;
+  const bool vec = sw % 4 == 0;  // then words is 16-byte aligned
+  if (vec) {
+    const uint4* src = reinterpret_cast<const uint4*>(words);
+#pragma unroll 8
+    for (int64_t i = threadIdx.x; i < sw / 4; i += blockDim.x)
+      slice4[i] = src[i];
+  } else {
+    for (int64_t i = threadIdx.x; i < sw; i += blockDim.x) slice[i] = words[i];
+  }
+  __syncthreads();
+#pragma unroll 8
+  for (unsigned long long e = lo + threadIdx.x; e < hi; e += blockDim.x) {
+    const uint32_t v = __ldcs(bins + e);
+    atomicOr(slice + (v >> 5), 1u << (v & 31));
+  }
+  __syncthreads();
+  if (vec) {
+    uint4* dst = reinterpret_cast<uint4*>(words);
+#pragma unroll 8
+    for (int64_t i = threadIdx.x; i < sw / 4; i += blockDim.x)
+      dst[i] = slice4[i];
+  } else {
+    for (int64_t i = threadIdx.x; i < sw; i += blockDim.x) words[i] = slice[i];
+  }
+}
+
 unsigned grid_for(int64_t units, int per_block) {
   int64_t blocks = (units + per_block - 1) / per_block;
   if (blocks > (int64_t)1 << 20) blocks = (int64_t)1 << 20;  // grid-stride
@@ -612,5 +810,75 @@ extern "C" int commet_probe_planes_multi(const void* plane_ptrs, int64_t s,
     COMMET_MULTI_CASE(8)
 #undef COMMET_MULTI_CASE
   }
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory above the default 48 KB needs the opt-in.
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The grid of a histogram or scatter: (blocks of kBulkThreads reads, at
+// most `blocks`, 4 planes x ranges of `width` bins).
+dim3 bulk_grid(int64_t b, int64_t nslices, int width, int blocks,
+               int64_t& ranges) {
+  ranges = (nslices + width - 1) / width;
+  int64_t gx = (b + kBulkThreads - 1) / kBulkThreads;
+  if (gx > blocks) gx = blocks;
+  return dim3((unsigned)gx, (unsigned)(4 * ranges));
+}
+
+// Adds a batch's entries per bin to counts ([4 * nslices] uint64).
+extern "C" int commet_bulk_hist(void* counts, int64_t nslices, int sb,
+                                const void* codes2, int64_t nw2,
+                                const void* aux, int64_t nwv, int clean,
+                                int64_t b, int length, int k, void* stream) {
+  if (b <= 0) return 0;
+  int64_t ranges = 0;
+  const dim3 grid = bulk_grid(b, nslices, kHistBins, kHistBlocks, ranges);
+  const int smem = kHistBins * (int)sizeof(uint32_t);
+  cudaError_t err = allow_smem(bulk_hist_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bulk_hist_kernel<<<grid, kBulkThreads, smem, (cudaStream_t)stream>>>(
+      (unsigned long long*)counts, nslices, (int)ranges, sb,
+      make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  return (int)cudaGetLastError();
+}
+
+// Appends a batch's entries to their bins: cursor ([4 * nslices] uint64,
+// each bin's next free index in bins) advances past them.
+extern "C" int commet_bulk_scatter(void* cursor, void* bins, int64_t nslices,
+                                   int sb, const void* codes2, int64_t nw2,
+                                   const void* aux, int64_t nwv, int clean,
+                                   int64_t b, int length, int k,
+                                   void* stream) {
+  if (b <= 0) return 0;
+  int64_t ranges = 0;
+  const dim3 grid =
+      bulk_grid(b, nslices, kScatterBins, kScatterBlocks, ranges);
+  const int smem = kScatterBins * (int)sizeof(unsigned long long);
+  cudaError_t err = allow_smem(bulk_scatter_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bulk_scatter_kernel<<<grid, kBulkThreads, smem, (cudaStream_t)stream>>>(
+      (unsigned long long*)cursor, (uint32_t*)bins, nslices, (int)ranges, sb,
+      make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  return (int)cudaGetLastError();
+}
+
+// ORs every bin's entries into planes ([4 * pw] words, updated in place);
+// offsets: [4 * nslices + 1] uint64, bin i's entries at bins[offsets[i] ..
+// offsets[i + 1]); sw words a slice (at most the opt-in shared memory).
+extern "C" int commet_bulk_apply(void* planes, int64_t pw, int64_t nslices,
+                                 int64_t sw, const void* bins,
+                                 const void* offsets, void* stream) {
+  const int smem = (int)(sw * 4);
+  cudaError_t err = allow_smem(bulk_apply_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bulk_apply_kernel<<<(unsigned)(4 * nslices), kApplyThreads, smem,
+                      (cudaStream_t)stream>>>(
+      (uint32_t*)planes, pw, nslices, sw, (const uint32_t*)bins,
+      (const unsigned long long*)offsets);
   return (int)cudaGetLastError();
 }

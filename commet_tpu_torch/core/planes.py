@@ -149,38 +149,48 @@ def _batch_args(codes2, aux, clean: bool, length: int):
 # Build
 # --------------------------------------------------------------------------
 
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 as int32 bit patterns."""
+    return torch.where(v >= SIGN, v - (1 << 32), v).to(torch.int32)
+
+
 def _bit_value(bit: torch.Tensor) -> torch.Tensor:
     """1 << bit as the int32 bit pattern (bit 31 is the sign bit)."""
-    v = torch.ones_like(bit) << bit
-    return torch.where(v >= SIGN, v - (1 << 32), v).to(torch.int32)
+    return _as_int32(torch.ones_like(bit) << bit)
+
+
+def _or_bits(planes: torch.Tensor, word: torch.Tensor,
+             bit: torch.Tensor) -> None:
+    """Set bit ``bit`` of word ``word`` (int64 tensors) of ``planes``, in
+    place: the distinct bits not yet set (a gather of their words), added
+    by one accumulating ``index_put_``. A sum of distinct bits of a word is
+    their OR (also through the int32 sign bit), so the add is a
+    scatter-OR."""
+    u = torch.unique(word * 32 + bit)
+    word, bit = u >> 5, u & 31
+    new = (planes[word].to(torch.int64) >> bit) & 1 == 0
+    planes.index_put_((word[new],), _bit_value(bit[new]), accumulate=True)
 
 
 def build_planes_plain(planes: torch.Tensor, codes2, valid_or_lengths,
                        clean: bool, length: int, k: int, lo: int = 0,
                        wl: Optional[int] = None) -> torch.Tensor:
     """Set the four plane bits of every valid forward window of the batch,
-    in place, in plain PyTorch: per plane the unique keys, less the bits
-    already set (a gather of their words), then one accumulating
-    ``index_put_`` over all four planes. A sum of distinct bits of a word is
-    their OR (also through the int32 sign bit), so the add is a scatter-OR.
-    Allocates per window, never per plane bit. With ``lo`` and ``wl``,
-    ``planes`` is a shard holding words [lo, lo + wl) of each plane, and
-    only the bits whose word lies there are set."""
+    in place, in plain PyTorch (_or_bits over all four planes). Allocates
+    per window, never per plane bit. With ``lo`` and ``wl``, ``planes`` is a
+    shard holding words [lo, lo + wl) of each plane, and only the bits whose
+    word lies there are set."""
     w = plane_words(k) if wl is None else wl
     a, b = keys.index_keys(_unpack(codes2, valid_or_lengths, clean, length),
                            k)
-    idx, val = [], []
+    words, bits = [], []
     for p, key in enumerate(four_plane_keys(a, b)):
-        word, bit = plane_addr(torch.unique(key))
+        word, bit = plane_addr(key)
         word = word - lo
         mine = (word >= 0) & (word < w)
-        word, bit = word[mine], bit[mine]
-        flat = word + p * w
-        have = (planes[flat].to(torch.int64) >> bit) & 1
-        new = have == 0
-        idx.append(flat[new])
-        val.append(_bit_value(bit[new]))
-    planes.index_put_((torch.cat(idx),), torch.cat(val), accumulate=True)
+        words.append(word[mine] + p * w)
+        bits.append(bit[mine])
+    _or_bits(planes, torch.cat(words), torch.cat(bits))
     return planes
 
 
@@ -256,6 +266,287 @@ def build_planes_range(shard: torch.Tensor, codes2, valid_or_lengths,
 
 
 build_planes_range.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Bulk build (K9)
+# --------------------------------------------------------------------------
+
+# plane bits one slice of the bulk build holds: 2^14 words, the 64 KiB of
+# shared memory one apply block loads (two blocks an SM; measured faster on
+# an H100 than 128 KiB slices, PERF.md)
+BULK_SLICE_BITS = 19
+
+
+def bulk_layout(k: int):
+    """(sb, slice_words, nslices) of the bulk build at k: a key's bin in its
+    plane is key >> sb, its entry key & (2^sb - 1); each of the four planes
+    is nslices slices of slice_words words (one slice below k = 19)."""
+    sb = max(5, min(k, BULK_SLICE_BITS))
+    return sb, 1 << (sb - 5), plane_words(k) >> (sb - 5)
+
+
+def bulk_slots(codes2, length: int, k: int) -> int:
+    """Window slots of a packed batch, reads x (length - k + 1): commet_tpu's
+    measure of a bulk chunk (the keys chunk_index_keys makes a batch)."""
+    return codes2.shape[0] * max(0, length - k + 1)
+
+
+def bulk_workspace_bytes(k: int, chunk: int, batch_slots: int,
+                         batch_bytes: int) -> int:
+    """Device bytes one bulk chunk holds beside the planes: its bins (4 B a
+    plane a window slot, for the batches up to and including the one that
+    reaches ``chunk`` slots), those kept batches (``batch_bytes`` each) and
+    its counts, offsets and cursors."""
+    n_batches = chunk // max(1, batch_slots) + 1
+    return (n_batches * (16 * batch_slots + batch_bytes)
+            + 3 * 8 * (4 * bulk_layout(k)[2] + 1))
+
+
+def _plane_bins(codes2, valid_or_lengths, clean: bool, length: int, k: int):
+    """(bin, entry) int64 of each complete forward window's four plane bits,
+    plane by plane."""
+    sb, _sw, ns = bulk_layout(k)
+    a, b = keys.index_keys(_unpack(codes2, valid_or_lengths, clean, length),
+                           k)
+    pk = four_plane_keys(a, b)
+    return (torch.cat([p * ns + (key >> sb) for p, key in enumerate(pk)]),
+            torch.cat([key & ((1 << sb) - 1) for key in pk]))
+
+
+def _check_bulk_vector(fn: str, name: str, x: torch.Tensor, n: int,
+                       device: torch.device) -> None:
+    if x.device != device or x.dtype != torch.int64 or x.dim() != 1 \
+            or x.numel() != n or not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be a contiguous [{n}] int64 "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def bulk_histogram_plain(codes2, valid_or_lengths, clean: bool, length: int,
+                         k: int) -> torch.Tensor:
+    """[4 * nslices] int64 counts of the batch's entries per bin, in plain
+    PyTorch (a bincount)."""
+    bins, _entries = _plane_bins(codes2, valid_or_lengths, clean, length, k)
+    return torch.bincount(bins, minlength=4 * bulk_layout(k)[2])
+
+
+def bulk_histogram(counts: torch.Tensor, codes2, valid_or_lengths,
+                   clean: bool, length: int, k: int) -> torch.Tensor:
+    """Add the packed batch's entries per bin (bulk_layout) to ``counts``
+    ([4 * nslices] int64), in place; returns ``counts``. The first pass of
+    the bulk build: a CUDA tensor runs csrc/planes.cu (commet_bulk_hist,
+    counted in ``bulk_histogram.launches``), a CPU tensor runs
+    bulk_histogram_plain."""
+    fn = "bulk_histogram"
+    _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
+    _sb, _sw, ns = bulk_layout(k)
+    _check_bulk_vector(fn, "counts", counts, 4 * ns, codes2.device)
+    if codes2.device.type == "cpu":
+        counts += bulk_histogram_plain(codes2, valid_or_lengths, clean,
+                                       length, k)
+        return counts
+    if codes2.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    if codes2.shape[0] == 0:
+        return counts
+    with torch.cuda.device(codes2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_bulk_hist", _ptr(counts), ctypes.c_int64(ns),
+                ctypes.c_int(bulk_layout(k)[0]),
+                *_batch_args(codes2, valid_or_lengths, clean, length),
+                ctypes.c_int(k), ctypes.c_void_p(stream))
+    bulk_histogram.launches += 1
+    return counts
+
+
+bulk_histogram.launches = 0
+
+
+def bulk_scatter_plain(bins: torch.Tensor, cursor: torch.Tensor, codes2,
+                       valid_or_lengths, clean: bool, length: int,
+                       k: int) -> None:
+    """bulk_scatter in plain PyTorch: a bin's entries in window order, plane
+    by plane (the kernel's order within a bin is the order its atomics
+    land in)."""
+    b, e = _plane_bins(codes2, valid_or_lengths, clean, length, k)
+    order = torch.argsort(b, stable=True)
+    b, e = b[order], e[order]
+    n = torch.bincount(b, minlength=cursor.numel())
+    rank = torch.arange(b.numel(), device=b.device) - (
+        torch.cumsum(n, 0) - n)[b]
+    bins[cursor[b] + rank] = e.to(torch.int32)
+    cursor += n
+
+
+def bulk_scatter(bins: torch.Tensor, cursor: torch.Tensor, codes2,
+                 valid_or_lengths, clean: bool, length: int,
+                 k: int) -> None:
+    """Append the packed batch's entries to their bins, in place: an entry
+    of bin i goes to ``bins`` ([n] int32, holding every entry of the chunk)
+    at ``cursor[i]`` ([4 * nslices] int64, each bin's next free index),
+    which advances. The second pass of the bulk build: a CUDA tensor runs
+    csrc/planes.cu (commet_bulk_scatter, counted in
+    ``bulk_scatter.launches``), a CPU tensor runs bulk_scatter_plain."""
+    fn = "bulk_scatter"
+    _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
+    sb, _sw, ns = bulk_layout(k)
+    _check_bulk_vector(fn, "cursor", cursor, 4 * ns, codes2.device)
+    _check_int32(fn, "bins", bins, 1, codes2.device)
+    if codes2.device.type == "cpu":
+        bulk_scatter_plain(bins, cursor, codes2, valid_or_lengths, clean,
+                           length, k)
+        return
+    if codes2.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    if codes2.shape[0] == 0:
+        return
+    with torch.cuda.device(codes2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_bulk_scatter", _ptr(cursor), _ptr(bins),
+                ctypes.c_int64(ns), ctypes.c_int(sb),
+                *_batch_args(codes2, valid_or_lengths, clean, length),
+                ctypes.c_int(k), ctypes.c_void_p(stream))
+    bulk_scatter.launches += 1
+
+
+bulk_scatter.launches = 0
+
+
+def bulk_apply_plain(planes: torch.Tensor, bins: torch.Tensor,
+                     offsets: torch.Tensor, k: int) -> torch.Tensor:
+    """bulk_apply in plain PyTorch: every entry's word and bit in the plane
+    set, set through one accumulating index_put_ of the distinct new
+    bits."""
+    _sb, sw, ns = bulk_layout(k)
+    n = offsets[1:] - offsets[:-1]
+    b = torch.repeat_interleave(torch.arange(4 * ns, device=bins.device), n)
+    start = int(offsets[0])
+    e = bins[start:start + b.numel()].to(torch.int64)
+    _or_bits(planes, (b // ns) * plane_words(k) + (b % ns) * sw + (e >> 5),
+             e & 31)
+    return planes
+
+
+def bulk_apply(planes: torch.Tensor, bins: torch.Tensor,
+               offsets: torch.Tensor, k: int) -> torch.Tensor:
+    """OR every bin's entries into ``planes`` (a four-plane set), in place;
+    returns ``planes``. Bin i's entries are bins[offsets[i] : offsets[i +
+    1]] (``offsets`` [4 * nslices + 1] int64). The last pass of the bulk
+    build, each plane word read and written once: a CUDA tensor runs
+    csrc/planes.cu (commet_bulk_apply, counted in ``bulk_apply.launches``),
+    a CPU tensor runs bulk_apply_plain."""
+    fn = "bulk_apply"
+    _check_planes(fn, planes, k, bins.device)
+    _check_int32(fn, "bins", bins, 1, bins.device)
+    _sb, sw, ns = bulk_layout(k)
+    _check_bulk_vector(fn, "offsets", offsets, 4 * ns + 1, bins.device)
+    if bins.device.type == "cpu":
+        return bulk_apply_plain(planes, bins, offsets, k)
+    if bins.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {bins.device}")
+    with torch.cuda.device(bins.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_bulk_apply", _ptr(planes),
+                ctypes.c_int64(plane_words(k)), ctypes.c_int64(ns),
+                ctypes.c_int64(sw), _ptr(bins), _ptr(offsets),
+                ctypes.c_void_p(stream))
+    bulk_apply.launches += 1
+    return planes
+
+
+bulk_apply.launches = 0
+
+
+def bulk_build_planes_plain(planes: torch.Tensor, batches,
+                            k: int) -> torch.Tensor:
+    """One chunk of the bulk build in plain PyTorch, in the shape of
+    commet_tpu's route (kernels.bulk_plane_sorted, bulk_scatter_set,
+    bulk_or_plane): per plane the chunk's bit addresses (the keys, word << 5
+    | bit) sorted and deduplicated, an OR of each run of equal words (a sum
+    of distinct bits), and one read-modify-write of each word the chunk
+    touches; in place, returns ``planes``. ``batches``: packed batches
+    (codes2, valid_or_lengths, clean, length)."""
+    w = plane_words(k)
+    ab = [keys.index_keys(_unpack(c2, aux, clean, length), k)
+          for c2, aux, clean, length in batches]
+    if not ab:
+        return planes
+    a = torch.cat([x[0] for x in ab])
+    b = torch.cat([x[1] for x in ab])
+    for p, key in enumerate(four_plane_keys(a, b)):
+        word, bit = plane_addr(torch.unique(key))
+        word, run = torch.unique_consecutive(word, return_inverse=True)
+        mask = torch.zeros_like(word).index_add_(0, run,
+                                                 torch.ones_like(bit) << bit)
+        flat = p * w + word
+        planes[flat] = _as_int32((planes[flat].to(torch.int64) & 0xFFFFFFFF)
+                                 | mask)
+    return planes
+
+
+class BulkChunk:
+    """One chunk of the bulk build (K9) of the four-plane set ``planes``.
+    ``add`` takes a packed batch: on the card bulk_histogram counts its
+    entries at once, and the batch is kept until ``flush``, which writes
+    every kept batch's windows into the planes (bulk_scatter of each, then
+    one bulk_apply; a CPU tensor takes bulk_build_planes_plain) and empties
+    the chunk. ``slots`` counts the kept batches' window slots
+    (bulk_slots). Counterpart of the accumulate-and-flush loop of
+    commet_tpu's Engine._build_planes_bulk."""
+
+    def __init__(self, planes: torch.Tensor, k: int):
+        _check_k("BulkChunk", k)
+        _check_planes("BulkChunk", planes, k, planes.device)
+        self.planes = planes
+        self.k = k
+        self.batches: list = []
+        self.slots = 0
+        self.counts: Optional[torch.Tensor] = None
+
+    def add(self, codes2, valid_or_lengths, clean: bool, length: int) -> None:
+        _check_batch("BulkChunk.add", codes2, valid_or_lengths, clean, length,
+                     self.k)
+        if codes2.device != self.planes.device:
+            raise ValueError(f"BulkChunk.add: batch on {codes2.device}, "
+                             f"planes on {self.planes.device}")
+        if codes2.device.type == "cuda":
+            if self.counts is None:
+                self.counts = torch.zeros(4 * bulk_layout(self.k)[2],
+                                          dtype=torch.int64,
+                                          device=codes2.device)
+            bulk_histogram(self.counts, codes2, valid_or_lengths, clean,
+                           length, self.k)
+        self.batches.append((codes2, valid_or_lengths, clean, length))
+        self.slots += bulk_slots(codes2, length, self.k)
+
+    def flush(self) -> torch.Tensor:
+        if self.batches and self.planes.device.type == "cpu":
+            bulk_build_planes_plain(self.planes, self.batches, self.k)
+        elif self.batches:
+            offsets = torch.zeros(self.counts.numel() + 1, dtype=torch.int64,
+                                  device=self.planes.device)
+            offsets[1:] = torch.cumsum(self.counts, 0)
+            cursor = offsets[:-1].clone()
+            bins = torch.empty(4 * self.slots, dtype=torch.int32,
+                               device=self.planes.device)
+            for batch in self.batches:
+                bulk_scatter(bins, cursor, *batch, self.k)
+            bulk_apply(self.planes, bins, offsets, self.k)
+        self.batches, self.slots, self.counts = [], 0, None
+        return self.planes
+
+
+def bulk_build_planes(planes: torch.Tensor, batches, k: int) -> torch.Tensor:
+    """Set the four plane bits of every complete forward window of the
+    packed ``batches`` (one chunk: (codes2, valid_or_lengths, clean,
+    length) each), in place; returns ``planes``. The bulk build of
+    commet_tpu (K9): on the card csrc/planes.cu's bulk_histogram,
+    bulk_scatter and bulk_apply, on the CPU bulk_build_planes_plain."""
+    chunk = BulkChunk(planes, k)
+    for batch in batches:
+        chunk.add(*batch)
+    return chunk.flush()
 
 
 # --------------------------------------------------------------------------

@@ -45,7 +45,13 @@ index builds (the memory clamps still apply on top); ``COMMET_TPU_PREFETCH=0``
 makes each host batch inline, without the prefetch thread; and
 ``COMMET_TPU_PROFILE=<dir>`` (read at each call, as commet_tpu reads it)
 runs every ``index_and_search`` call under ``torch.profiler`` and writes one
-Chrome trace per call into ``<dir>``.
+Chrome trace per call into ``<dir>``. ``COMMET_TPU_BULK_BUILD`` picks the
+dense-plane build: ``0`` the per-batch build (planes.build_planes), ``force``
+the bulk build (planes.BulkChunk; on the CPU its plain version), unset or
+``1`` on the card the route CARD_BULK_BUILD names and on the CPU the
+per-batch build; never the bulk build with a mesh. ``COMMET_TPU_BULK_CHUNK``
+sets the window slots of a bulk chunk (bulk_chunk). The planes are the same
+bits on either route.
 
 With a mesh (parallel/sharded.py: an explicit list of devices, repeats
 allowed) the engine runs commet_tpu's multi-device modes: ``dp`` replicates
@@ -111,10 +117,23 @@ RESIDENT_MAX_K = 34
 # the fill gate: a partition whose k-mers / 2^k exceed it takes the planes
 # (commet_tpu's stream_max_fill; COMMET_TPU_STREAM_MAX_FILL overrides)
 STREAM_MAX_FILL = 0.02
-# device bytes kept free beside plane sets: the build and probe kernels need
-# only a batch's upload and tags, so this is a margin for the allocator and
-# the refinement calls' batches
+# device bytes kept free beside plane sets: the per-batch build and the probe
+# kernels need only a batch's upload and tags, so this is a margin for the
+# allocator and the refinement calls' batches (the bulk build's chunk
+# workspace, planes.bulk_workspace_bytes, is counted on top)
 PLANES_WORKSPACE_BYTES = 2 << 30
+# window slots of one bulk-build chunk (planes.BulkChunk), commet_tpu's
+# defaults: 2^27 at k >= 32 (its sort operands beside 4 GiB planes), 2^28
+# below, and 2^26 at k >= 32 for a set built beside resident plane sets (the
+# plane cohorts); COMMET_TPU_BULK_CHUNK replaces all three
+BULK_CHUNK = 1 << 28
+BULK_CHUNK_WIDE = 1 << 27
+BULK_CHUNK_BESIDE = 1 << 26
+# the dense-plane build the card takes when COMMET_TPU_BULK_BUILD is unset or
+# 1: the bulk build (True) or the per-batch build (False), whichever
+# chip_smoke.py phase 14 measures faster for one default partition (k = 33,
+# 999.6M windows, 11.6% fill; PERF.md section 5)
+CARD_BULK_BUILD = True
 
 
 def max_kmer_for(k: int) -> int:
@@ -316,6 +335,13 @@ class Engine:
         self.probe_batch = batch_switch("COMMET_TPU_PROBE_BATCH")
         self.build_batch = batch_switch("COMMET_TPU_BUILD_BATCH")
         self.prefetch = os.environ.get("COMMET_TPU_PREFETCH", "1") != "0"
+        # the dense-plane build: COMMET_TPU_BULK_BUILD 0 / 1 / force and the
+        # bulk chunk's window slots (uses_bulk_build, bulk_chunk)
+        bulk = os.environ.get("COMMET_TPU_BULK_BUILD", "1")
+        self.bulk_forced = bulk == "force"
+        self.bulk_off = bulk == "0"
+        chunk = os.environ.get("COMMET_TPU_BULK_CHUNK")
+        self.bulk_chunk_set = None if chunk is None else int(chunk)
         # the Chrome trace of the last profiled index_and_search call
         self.last_trace: Optional[str] = None
         # host-IO accounting of the last search call: total gather+pack
@@ -463,9 +489,13 @@ class Engine:
                 "at this k); COMMET_TPU_STREAM=0 sends every partition "
                 "there, or lower max_kmer.")
 
-    def _check_plane_memory(self) -> None:
+    def _check_plane_memory(self, bulk_bytes: int = 0,
+                            chunk: int = 0) -> None:
         """The planes fit each card they go to: the whole set on the
-        engine's card, or in plane mode its shards on each mesh device."""
+        engine's card, or in plane mode its shards on each mesh device; and
+        beside the whole set the bulk build's chunk workspace
+        (``bulk_bytes`` for chunks of ``chunk`` window slots), else a
+        MemoryError that names the switches."""
         if self.device.type != "cuda":
             return
         need = {self.device: planes.plane_bytes(self.k)}
@@ -479,20 +509,73 @@ class Engine:
                 raise MemoryError(
                     f"the four bit planes of k={self.k} need {n_bytes} B on "
                     f"{dev}; {free} B free")
+            if n_bytes + bulk_bytes > free:
+                raise MemoryError(
+                    f"the bulk plane build (COMMET_TPU_BULK_BUILD) of "
+                    f"k={self.k} needs {bulk_bytes} B of chunk workspace "
+                    f"for chunks of {chunk} window slots "
+                    f"(COMMET_TPU_BULK_CHUNK) beside its {n_bytes} B of "
+                    f"planes on {dev}; {free} B free. A smaller "
+                    f"COMMET_TPU_BULK_CHUNK, or COMMET_TPU_BULK_BUILD=0 (the "
+                    f"per-batch build), needs less")
 
-    def build_planes(self, enc: EncodedSet, idx: np.ndarray):
-        """The partition's four-plane set from reads ``idx``: every complete
-        forward window set through planes.build_planes, batch by batch
-        ([4 * plane_words(k)] int32); with a mesh, replicated over it (dp),
-        or built as word shards by the ranged build kernel
-        (sharded.build_planes_sharded: plane mode). Counterpart of
-        Engine.build_planes off the stream branch (the per-batch and the
-        bulk builds alike)."""
-        self._check_plane_memory()
+    def uses_bulk_build(self) -> bool:
+        """Whether build_planes takes the bulk build (K9, planes.BulkChunk)
+        rather than the per-batch one: never with a mesh;
+        COMMET_TPU_BULK_BUILD=0 never, =force always (on the CPU through its
+        plain version), otherwise on the card as CARD_BULK_BUILD says and
+        never on the CPU. Counterpart of commet_tpu's use_bulk
+        (Engine.build_planes)."""
+        if self.mesh is not None or self.bulk_off:
+            return False
+        return self.bulk_forced or (self.device.type == "cuda"
+                                    and CARD_BULK_BUILD)
+
+    def bulk_chunk(self, beside_residents: bool = False) -> int:
+        """Window slots of one bulk-build chunk: COMMET_TPU_BULK_CHUNK where
+        set, else BULK_CHUNK_WIDE at k >= 32 (BULK_CHUNK_BESIDE for a set
+        built beside resident plane sets) and BULK_CHUNK below. Counterpart
+        of the cap of commet_tpu's _build_planes_bulk and its cohort
+        halving (cli/commet.py run_plane_cohorts)."""
+        if self.bulk_chunk_set is not None:
+            return self.bulk_chunk_set
+        if self.k < 32:
+            return BULK_CHUNK
+        return BULK_CHUNK_BESIDE if beside_residents else BULK_CHUNK_WIDE
+
+    def _bulk_bytes(self, enc: EncodedSet, idx: np.ndarray,
+                    chunk: int) -> int:
+        """The bulk build's chunk workspace on the card for reads ``idx``
+        (planes.bulk_workspace_bytes at their batch geometry, validity words
+        counted), 0 where the route or the device needs none."""
+        if self.device.type != "cuda" or not self.uses_bulk_build():
+            return 0
+        lmax = int(enc.read_lengths(idx).max(initial=1))
+        lpad = _pad_length(lmax, self.k)
+        rows = row_batch_size(self.build_batch, max(1, lmax - self.k + 1))
+        return planes.bulk_workspace_bytes(
+            self.k, chunk, rows * (lpad - self.k + 1),
+            rows * 4 * (lpad // 16 + lpad // 32 + 1))
+
+    def build_planes(self, enc: EncodedSet, idx: np.ndarray,
+                     chunk: Optional[int] = None):
+        """The partition's four-plane set from reads ``idx``
+        ([4 * plane_words(k)] int32): with the bulk build
+        (uses_bulk_build), batches gathered into chunks of ``chunk`` window
+        slots (bulk_chunk() by default), each chunk flushed once it reaches
+        them after a batch (planes.BulkChunk); else every complete forward
+        window set through planes.build_planes, batch by batch; with a mesh,
+        replicated over it (dp), or built as word shards by the ranged build
+        kernel (sharded.build_planes_sharded: plane mode). Counterpart of
+        Engine.build_planes off the stream branch and _build_planes_bulk."""
+        chunk = self.bulk_chunk() if chunk is None else chunk
+        bulk = self.uses_bulk_build()
+        self._check_plane_memory(self._bulk_bytes(enc, idx, chunk), chunk)
         if self.mesh_mode == "plane":
             out = sharded.alloc_planes_sharded(self.k, self.mesh)
         else:
             out = planes.alloc_planes(self.k, self.device)
+        acc = planes.BulkChunk(out, self.k) if bulk else None
         lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
@@ -501,9 +584,15 @@ class Engine:
             aux = ln if clean else vd
             if self.mesh_mode == "plane":
                 sharded.build_planes_sharded(out, c2, aux, clean, lpad)
+            elif acc is not None:
+                acc.add(self._up(c2), self._up(aux), clean, lpad)
+                if acc.slots >= chunk:
+                    acc.flush()
             else:
                 planes.build_planes(out, self._up(c2), self._up(aux), clean,
                                     lpad, self.k)
+        if acc is not None:
+            acc.flush()
         if self.mesh_mode == "dp":
             return sharded.replicate(out, self.mesh)
         return out
@@ -860,13 +949,15 @@ class Engine:
         return min(limits, default=float("inf"))
 
     def build_resident_planes(self, index_set: ReadSet,
-                              budget: Optional[float] = None
+                              budget: Optional[float] = None,
+                              bulk_chunk: Optional[int] = None
                               ) -> Optional[ResidentPlanes]:
         """Build every max_kmer partition of ``index_set`` as a resident
-        four-plane set (build_planes per partition), for the plane cohorts.
-        Returns None, before any device allocation, when the engine has a
-        mesh or the plane bytes
-        (plane_bytes(k) per partition) exceed _planes_budget. Counterpart of
+        four-plane set (build_planes per partition, bulk builds in chunks of
+        ``bulk_chunk`` window slots, bulk_chunk() by default), for the plane
+        cohorts. Returns None, before any device allocation, when the engine
+        has a mesh or the plane bytes (plane_bytes(k) per partition) and the
+        bulk build's chunk workspace exceed _planes_budget. Counterpart of
         build_resident_planes."""
         if self.mesh is not None:
             return None
@@ -876,10 +967,13 @@ class Engine:
         kcounts = (self.count_kmers(enc, elig) if len(elig)
                    else np.zeros(0, dtype=np.int64))
         parts = self.partitions(kcounts)
-        if len(parts) * planes.plane_bytes(self.k) > self._planes_budget(
-                budget):
+        chunk = self.bulk_chunk() if bulk_chunk is None else bulk_chunk
+        need = len(parts) * planes.plane_bytes(self.k)
+        if parts:
+            need += self._bulk_bytes(enc, elig, chunk)
+        if need > self._planes_budget(budget):
             return None
-        pls = [self.build_planes(enc, elig[part]) for part in parts]
+        pls = [self.build_planes(enc, elig[part], chunk) for part in parts]
         synchronize(self.device)
         fills = [float(kcounts[part].sum()) / float(2 ** self.k)
                  for part in parts]
