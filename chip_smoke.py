@@ -29,8 +29,9 @@ Phases, each printing one line with its seconds:
      commet_build_planes, commet_probe_planes, commet_probe_planes_multi,
      commet_build_planes_range, commet_probe_planes_part_a,
      commet_probe_planes_part, commet_bulk_hist, commet_bulk_scatter,
-     commet_bulk_apply; filter.cu: commet_class_counts), one nvcc per
-     source, started together;
+     commet_bulk_refine, commet_bulk_apply and, for measurement only,
+     commet_bulk_decode and commet_store_runs; filter.cu:
+     commet_class_counts), one nvcc per source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows), sorted and
@@ -89,8 +90,10 @@ Phases, each printing one line with its seconds:
      plain versions at k in {15, 21, 31, 33}, t in {1, 2, 17}, S in
      {1, 3, 32}, dirty batches with internal Ns and clean ones, reads
      shorter than k, 100 and 300 bp reads; and the bulk build's kernels
-     (histogram, scatter, apply) against their plain versions on such
-     reads at the same k, in chunks of three 2,000-read batches (so a
+     (histogram, level-1 scatter, level 2's slice counts and refine, apply)
+     against their plain versions on such reads and on a batch skewed into
+     plane D's last region (2% A) at the same k, in chunks of three
+     2,000-read batches (so a
      BulkChunk flushes many times and its last chunk is smaller) and a
      chunk with no complete window, BulkChunk's planes equal to the
      per-batch build's and bulk_build_planes_plain's;
@@ -100,7 +103,7 @@ Phases, each printing one line with its seconds:
      give none); 272M k-mers per set, 3.2% fill, above the gate, so step 0
      runs the plane cohorts (three 4 GiB residents). The driver must say so,
      probe S = 3 slots for set 4, launch the default build's kernels
-     (engine.CARD_BULK_BUILD: the bulk build's three, else
+     (engine.CARD_BULK_BUILD: the bulk build's five, else
      commet_build_planes) and both probes, and match the known shared
      counts;
  11. compare_reads at COMMET's defaults (-k 33 -t 2), in phase 10's
@@ -184,24 +187,29 @@ Phases, each printing one line with its seconds:
      phase 9's probe batch through probe_planes and the grouped probe at
      S = 3 against their plain versions beside their bounds, plane loads
      split into A and B/C/D; the B/C/D loads a cascade (K7) could skip,
-     against its rule. The bulk build (K9) of the same partition in the
-     engine's chunks of 2^27 window slots: the whole build (host clock and
-     CUDA events) against the fill, equal planes, each kernel's device ms
-     (torch.profiler) beside its bound, each kernel against its plain
-     version on the first chunk and the plain versions timed,
-     torch.sort of that chunk's keys (the library yardstick), the build
+     against its rule. The bulk build (K9) of the same partition: first
+     what binds a scatter alone (the level-1 roll storing nothing, ms a
+     batch and windows a second; one batch's 17.8M 4-byte stores in runs
+     of 1, 4, 8, 32 and 128 words at pseudo-random starts, ms and stores a
+     second); in the engine's chunks of 2^27 window slots the whole build
+     (host clock and CUDA events) against the fill, equal planes, each
+     kernel's ms a launch from CUDA events around its passes beside its
+     bound, each kernel against its plain version on the first chunk and
+     the plain versions timed, torch.bincount of one batch's (block, coarse
+     bin) ids, torch.sort of the first chunk's keys and torch.bincount of
+     their fine bins (the library yardsticks), the build
      again beside the two resident sets with the cohorts' chunk of 2^26,
      equal, with each build's max_memory_allocated; the faster route
      printed beside the engine's card default.
 Each main path (phases 6, 10, 11, 14's CLI call and 12's --jobs run, 13.2
 to 13.4's runs, 13.1's filter) runs with every kernel's launch count set
-to 0 just before it and read just after; the kernels line (twelve
+to 0 just before it and read just after; the kernels line (fourteen
 kernels) takes the plane kernels' launches from phase 10 (the per-batch
 build's from 13.3's dp run when the bulk build is the card's default: a
 mesh never takes it), the ranged build's and the probe passes' from 13.3's
 plane-mode run and the class counts' from 13.1's filter_batch_device, the
 class counts' ms from torch.profiler at 65,536 reads and the bulk kernels'
-(per launch) from phase 14. At the end no module of
+(per launch, CUDA events around their passes) from phase 14. At the end no module of
 JAX or of the JAX package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
@@ -1233,8 +1241,8 @@ def phase_plane_edges(device, rng):
 
 def _sorted_bins(bins, offsets):
     """Every entry of ``bins`` keyed by its bin (``offsets``), sorted: the
-    bins as sets (the scatter kernel appends in the order its atomics
-    land)."""
+    bins as sets (the level-1 and level-2 kernels place a run's entries in
+    the order their shared-memory atomics land)."""
     import torch
     n = offsets[1:] - offsets[:-1]
     b = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n)
@@ -1243,35 +1251,52 @@ def _sorted_bins(bins, offsets):
 
 def _bulk_chunk_check(pl, chunk, k: int) -> None:
     """One chunk of packed batches ORed into ``pl`` by the bulk kernels,
-    each against its plain version: the histogram of each batch, the bins
-    the scatters fill (as sets, and every cursor ending at the next bin's
-    offset), and the apply onto ``pl`` against the plain apply of the same
-    bins onto a copy."""
+    each against its plain version: each batch's histogram table, level
+    1's buffer (each coarse bin as a set), level 2's fine counts and bins
+    (each fine bin as a set, every cursor ending at the next bin's offset),
+    and the apply onto ``pl`` against the plain apply of the same bins onto
+    a copy."""
     import torch
     from commet_tpu_torch.core import planes
-    _sb, _sw, ns = planes.bulk_layout(k)
-    counts = torch.zeros(4 * ns, dtype=torch.int64, device=pl.device)
+    _sb, _sw, ns, _rb = planes.bulk_layout(k)
+    tables = [torch.zeros((0, planes.bulk_bins(k)[0]), dtype=torch.int32,
+                          device=pl.device)]
     for bt in chunk:
-        before = counts.clone()
-        planes.bulk_histogram(counts, *bt, k)
-        if not torch.equal(counts - before,
-                           planes.bulk_histogram_plain(*bt, k)):
+        tables.append(planes.bulk_histogram(*bt, k))
+        if not torch.equal(tables[-1], planes.bulk_histogram_plain(*bt, k)):
             raise AssertionError(f"k={k}: bulk_histogram differs from its "
                                  "plain version")
+    starts, cstart = planes.bulk_starts(torch.cat(tables))
+    size = 4 * sum(planes.bulk_slots(bt[0], bt[3], k) for bt in chunk)
+    mid = torch.empty(size, dtype=torch.int32, device=pl.device)
+    want_mid = torch.empty_like(mid)
+    row0 = 0
+    for bt in chunk:
+        planes.bulk_scatter(mid, starts, row0, *bt, k)
+        planes.bulk_scatter_plain(want_mid, starts, row0, *bt, k)
+        row0 += planes.bulk_blocks(bt[0])
+    if not torch.equal(_sorted_bins(mid, cstart),
+                       _sorted_bins(want_mid, cstart)):
+        raise AssertionError(f"k={k}: bulk_scatter differs from its plain "
+                             "version")
+    counts = planes.bulk_slice_counts(
+        torch.zeros(4 * ns, dtype=torch.int64, device=pl.device), mid,
+        cstart, k)
+    if not torch.equal(counts, planes.bulk_slice_counts_plain(mid, cstart,
+                                                              k)):
+        raise AssertionError(f"k={k}: bulk_slice_counts differs from its "
+                             "plain version")
     offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=pl.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    size = 4 * sum(planes.bulk_slots(bt[0], bt[3], k) for bt in chunk)
-    bins = torch.empty(size, dtype=torch.int32, device=pl.device)
-    want_bins = torch.empty_like(bins)
+    bins, want_bins = torch.empty_like(mid), torch.empty_like(mid)
     cursor, want_cursor = offsets[:-1].clone(), offsets[:-1].clone()
-    for bt in chunk:
-        planes.bulk_scatter(bins, cursor, *bt, k)
-        planes.bulk_scatter_plain(want_bins, want_cursor, *bt, k)
+    planes.bulk_refine(bins, cursor, mid, cstart, k)
+    planes.bulk_refine_plain(want_bins, want_cursor, mid, cstart, k)
     if not (torch.equal(cursor, offsets[1:])
             and torch.equal(want_cursor, offsets[1:])
             and torch.equal(_sorted_bins(bins, offsets),
                             _sorted_bins(want_bins, offsets))):
-        raise AssertionError(f"k={k}: bulk_scatter differs from its plain "
+        raise AssertionError(f"k={k}: bulk_refine differs from its plain "
                              "version")
     want = planes.bulk_apply_plain(pl.clone(), bins, offsets, k)
     planes.bulk_apply(pl, bins, offsets, k)
@@ -1285,6 +1310,8 @@ def phase_bulk_edges(device, rng):
     """The bulk build's kernels against their plain versions at edge shapes,
     for k in EDGE_K: phase 9's edge reads (dirty and clean batches, reads
     shorter than k, 100 and 300 bp reads, Ns) in batches of 2,000 reads,
+    and a clean batch of 300 bp reads with 2% A (plane D's keys, a | b,
+    crowd into its last region: coarse bins of many level-2 tiles), in
     chunks of three batches' window slots (so a BulkChunk flushes every
     third batch and its last chunk is smaller), and a chunk with no
     complete window. Per chunk each kernel against its plain version
@@ -1299,6 +1326,11 @@ def phase_bulk_edges(device, rng):
                     320)
                    for clean in (False, True)
                    for rows in np.array_split(np.arange(20_000), 5)]
+        skew = np.full((2000, 320), 4, dtype=np.uint8)
+        skew[:, :300] = rng.choice(4, (2000, 300), p=[0.02, 0.33, 0.33,
+                                                       0.32])
+        batches.append((*_edge_pack(device, skew, np.full(2000, 300), True),
+                        True, 320))
         short = np.nonzero(lens < k)[0]
         empty = (*_edge_pack(device, idx[short], lens[short], False), False,
                  320)
@@ -2123,13 +2155,16 @@ def device_ms(fn, names) -> dict:
 
 def kernel_ms(fn, name: str, reps: int) -> float:
     """Mean device milliseconds of the kernels whose name holds ``name``
-    over ``reps`` calls of fn after one warm-up call (device_ms)."""
+    over ``reps`` calls of fn after one warm-up call (device_ms). The
+    profiler can miss a device event of its window (one of 20 in an H100
+    run), so the mean is over the events it saw; it fails on none or more
+    than ``reps``."""
     import torch
     fn()
     torch.cuda.synchronize()
     total, count = device_ms(lambda: [fn() for _ in range(reps)],
                              [name])[name]
-    if count != reps:
+    if not 0 < count <= reps:
         raise AssertionError(f"torch.profiler saw {count} device events of "
                              f"{name} for {reps} calls")
     return total / count
@@ -2659,8 +2694,8 @@ def _bulk_fill(pl, batches, lengths, lpad: int, chunk: int, stats=None):
     """``pl`` zeroed, then ``batches`` (clean [n, lpad / 16] code words of
     100 bp reads) built into it by planes.BulkChunk as Engine.build_planes
     cuts a partition: a chunk flushed once it reaches ``chunk`` window
-    slots. With ``stats``, adds each chunk's entries, its bins that hold
-    entries and the chunks to it. Returns (wall s, CUDA-event ms)."""
+    slots. With ``stats``, adds each chunk's entries, its fine bins that
+    hold entries and the chunks to it. Returns (wall s, CUDA-event ms)."""
     import torch
     from commet_tpu_torch.core import planes
     pl.zero_()
@@ -2669,11 +2704,11 @@ def _bulk_fill(pl, batches, lengths, lpad: int, chunk: int, stats=None):
     end = torch.cuda.Event(enable_timing=True)
 
     def flush():
+        acc.flush()
         if stats is not None:
             stats["entries"] += int(acc.counts.sum())
             stats["bins"] += int((acc.counts > 0).sum())
             stats["chunks"] += 1
-        acc.flush()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2689,27 +2724,154 @@ def _bulk_fill(pl, batches, lengths, lpad: int, chunk: int, stats=None):
     return time.perf_counter() - t0, start.elapsed_time(end)
 
 
+BULK_PASSES = ("hist", "scatter", "slice_counts", "refine", "apply")
+# clock cycles the card sleeps before a timed pass (about 2 ms on an H100)
+PASS_SLEEP_CYCLES = 4_000_000
+
+
+def _bulk_passes(pl, batches, lengths, lpad: int, chunk: int):
+    """The bulk build of ``batches`` into ``pl`` (zeroed first) in the
+    engine's chunks, as planes.BulkChunk flushes them, with CUDA events
+    around each pass of each chunk: {pass: ms summed over the build}, in
+    BULK_PASSES order (the histograms of a chunk's batches, their level-1
+    scatters, level 2's counting and placing launches, the apply). Each
+    pass starts behind a sleep on the card long enough for the host to
+    queue all its launches, so its events time the card, not the host's
+    launch rate (a histogram launch takes about as long as its wrapper's
+    host work). The wrappers' own glue (the tiles' scan of level 2) is
+    inside its pass; the tables' scan and the offsets' are outside every
+    pass."""
+    import torch
+    from commet_tpu_torch.core import planes
+    k, device = PLANE_K, pl.device
+    ns = planes.bulk_layout(k)[2]
+    pl.zero_()
+    ms = dict.fromkeys(BULK_PASSES, 0.0)
+    events = []
+
+    def timed(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PASS_SLEEP_CYCLES)
+        start.record()
+        out = fn()
+        end.record()
+        events.append((name, start, end))
+        return out
+
+    per = -(-chunk // planes.bulk_slots(batches[0], lpad, k))
+    for i in range(0, len(batches), per):
+        cut = [(b, lengths[:len(b)], True, lpad) for b in batches[i:i + per]]
+        tables = timed("hist", lambda: [planes.bulk_histogram(*bt, k)
+                                        for bt in cut])
+        starts, cstart = planes.bulk_starts(torch.cat(tables))
+        mid = torch.empty(4 * sum(planes.bulk_slots(bt[0], lpad, k)
+                                  for bt in cut), dtype=torch.int32,
+                          device=device)
+
+        def scatter():
+            row0 = 0
+            for bt in cut:
+                planes.bulk_scatter(mid, starts, row0, *bt, k)
+                row0 += planes.bulk_blocks(bt[0])
+
+        timed("scatter", scatter)
+        counts = torch.zeros(4 * ns, dtype=torch.int64, device=device)
+        timed("slice_counts", lambda: planes.bulk_slice_counts(
+            counts, mid, cstart, k))
+        offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=device)
+        offsets[1:] = torch.cumsum(counts, 0)
+        bins = torch.empty_like(mid)
+        cursor = offsets[:-1].clone()
+        timed("refine", lambda: planes.bulk_refine(bins, cursor, mid, cstart,
+                                                   k))
+        del mid, starts
+        timed("apply", lambda: planes.bulk_apply(pl, bins, offsets, k))
+        del bins
+    torch.cuda.synchronize()
+    for name, start, end in events:
+        ms[name] += start.elapsed_time(end)
+    return ms
+
+
+def _bulk_micro(batches, lengths, lpad: int) -> dict:
+    """What binds a scatter, measured alone: the decode rate (the level-1
+    roll of every batch computing each window's four coarse bins and
+    entries and storing nothing, csrc/planes.cu commet_bulk_decode, timed
+    over all batches by CUDA events) and the rate of one batch's count of
+    4-byte stores (4 a window slot) written as runs of 1, 4, 8, 32 and 128
+    consecutive words at pseudo-random starts in the first half of a
+    2 GiB buffer (commet_store_runs)."""
+    import ctypes
+    import torch
+    from commet_tpu_torch.core import _cuda, planes
+    k, device = PLANE_K, batches[0].device
+    lib = _cuda.load("planes")
+    nbins, rb = planes.bulk_bins(k)[0], planes.bulk_layout(k)[3]
+    sink = torch.zeros(8 * planes.bulk_blocks(batches[0]), dtype=torch.int32,
+                       device=device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def decode(b):
+        err = lib.commet_bulk_decode(
+            planes._ptr(sink), nbins, rb,
+            *planes._batch_args(b, lengths[:len(b)], True, lpad), k, stream)
+        if err:
+            raise RuntimeError(f"commet_bulk_decode: cudaError {err}")
+
+    decode(batches[0])  # warm-up
+    decode_ms = _events_ms([lambda b=b: decode(b) for b in batches])
+    windows = len(batches) * len(batches[0]) * (READ_LEN - k + 1)
+    n = 4 * len(batches[0]) * (READ_LEN - k + 1)
+    words = 1 << 29
+    out = torch.empty(words, dtype=torch.int32, device=device)
+    runs = {}
+    for run in (1, 4, 8, 32, 128):
+        def store(run=run):
+            err = lib.commet_store_runs(planes._ptr(out), words, n,
+                                        run.bit_length() - 1, stream)
+            if err:
+                raise RuntimeError(f"commet_store_runs: cudaError {err}")
+        got = cuda_ms(store, 5)
+        runs[run] = {"ms": got, "entries_per_s": n / got * 1e3}
+    del out
+    torch.cuda.empty_cache()
+    return {"decode_ms_batch": decode_ms / len(batches),
+            "decode_windows_per_s": windows / decode_ms * 1e3,
+            "decode_batches": len(batches), "stores": n,
+            "store_runs": runs}
+
+
 def phase_bulk_default_fill(pl, batches, lengths, lpad: int,
                             fill_ms: float) -> dict:
     """Phase 14's bulk build (K9) of the default partition whose batches
-    the atomic fill built into ``pl`` in ``fill_ms``: the whole build in
-    the engine's chunks (engine.BULK_CHUNK_WIDE window slots) timed by the
-    host clock and CUDA events, each kernel's device ms from torch.profiler
-    beside its bound (the bytes of its launches: the batches read, the
-    counts or cursors read and written, the entries written or read once,
-    each plane word of a bin that holds entries read and written once a
-    chunk), planes equal to ``pl``; the first chunk's kernels against their
+    the atomic fill built into ``pl`` in ``fill_ms``: first what binds a
+    scatter alone (_bulk_micro); the whole build in the engine's chunks
+    (engine.BULK_CHUNK_WIDE window slots) timed by the host clock and CUDA
+    events, planes equal to ``pl``; each kernel's ms a launch from CUDA
+    events around its whole passes (_bulk_passes, planes equal again)
+    beside its bound (the bytes of its launches: the histogram the batches
+    read and the tables written; level 1 the batches read, the starts read
+    and the entries written; level 2's counting launch the entries read and
+    the fine counts written, its placing launch the entries read and
+    written and the cursors read and written; the apply the entries and
+    offsets read and each plane word of a fine bin that holds entries read
+    and written once a chunk); the first chunk's kernels against their
     plain versions (_bulk_chunk_check) and the plain versions timed, one
-    batch or one chunk; torch.sort of that chunk's four planes' keys (the
-    library yardstick); the build again beside the two resident sets with
-    the cohorts' chunk (engine.BULK_CHUNK_BESIDE), equal, with the peak of
-    each build; the faster route."""
+    batch or one chunk; the library yardsticks: torch.bincount of one
+    batch's (block, coarse bin) ids for the histogram, torch.sort of the
+    first chunk's four planes' keys for the scatter, torch.bincount of its
+    fine bin ids for level 2's counts; the build again beside the two
+    resident sets with the cohorts' chunk (engine.BULK_CHUNK_BESIDE),
+    equal, with the peak of each build; the faster route."""
     import torch
     from commet_tpu_torch.core import keys, planes
     from commet_tpu_torch.engine import engine
     k, device = PLANE_K, pl.device
     chunk = engine.BULK_CHUNK_WIDE
-    _sb, sw, ns = planes.bulk_layout(k)
+    _sb, sw, ns, _rb = planes.bulk_layout(k)
+    nbins = planes.bulk_bins(k)[0]
+    micro = _bulk_micro(batches, lengths, lpad)
     bulk = planes.alloc_planes(k, device)
     stats = {"entries": 0, "bins": 0, "chunks": 0}
     _bulk_fill(bulk, batches, lengths, lpad, chunk, stats)  # warm-up
@@ -2720,59 +2882,71 @@ def phase_bulk_default_fill(pl, batches, lengths, lpad: int,
     torch.cuda.reset_peak_memory_stats()
     wall_s, ms = _bulk_fill(bulk, batches, lengths, lpad, chunk)
     peak = torch.cuda.max_memory_allocated()
-    names = ("bulk_hist_kernel", "bulk_scatter_kernel", "bulk_apply_kernel")
-    prof = device_ms(lambda: _bulk_fill(bulk, batches, lengths, lpad, chunk),
-                     names)
-    launches = [len(batches), len(batches), stats["chunks"]]
-    # the profiler can miss the first device event of its window: each
-    # kernel's mean is over the events it saw
-    seen = [prof[name][1] for name in names]
-    if not all(0 < got <= n for got, n in zip(seen, launches)):
-        raise AssertionError(f"torch.profiler saw {prof} for launches "
-                             f"{launches}")
-    mean_ms = [prof[name][0] / got for name, got in zip(names, seen)]
     if not torch.equal(bulk, pl):
         raise AssertionError("the timed bulk build differs from the atomic "
                              "fill")
+    pass_ms = _bulk_passes(bulk, batches, lengths, lpad, chunk)
+    if not torch.equal(bulk, pl):
+        raise AssertionError("the bulk build pass by pass differs from the "
+                             "atomic fill")
+    n_batches, n_chunks = len(batches), stats["chunks"]
+    launches = [n_batches, n_batches, n_chunks, n_chunks, n_chunks]
     batch_bytes = sum(b.numel() * 4 + len(b) * 4 for b in batches)
-    vec = 4 * ns * 8
+    blocks = sum(-(-len(b) // planes.BULK_BLOCK_READS) for b in batches)
+    table_bytes = 4 * nbins * blocks
     entry_bytes = 4 * stats["entries"]  # 4 B an entry, 4 entries a window
-    bounds = [bound_ms(batch_bytes + 2 * vec * len(batches)),
-              bound_ms(batch_bytes + 2 * vec * len(batches) + entry_bytes),
-              bound_ms(entry_bytes + stats["chunks"] * (vec + 8)
-                       + 2 * 4 * sw * stats["bins"])]
+    fine_bytes = 8 * 4 * ns * n_chunks
+    bounds = [bound_ms(batch_bytes + table_bytes),
+              bound_ms(batch_bytes + 2 * table_bytes + entry_bytes),
+              bound_ms(entry_bytes + fine_bytes),
+              bound_ms(2 * entry_bytes + 2 * fine_bytes),
+              bound_ms(entry_bytes + fine_bytes + 2 * 4 * sw * stats["bins"])]
 
     # the first chunk: each kernel against its plain version, the plain
-    # versions timed, and torch.sort of the chunk's plane-tagged keys
+    # versions timed, and the library yardsticks
     first = [(b, lengths[:len(b)], True, lpad) for b in batches[:-(
         -chunk // planes.bulk_slots(batches[0], lpad, k))]]
     check = planes.alloc_planes(k, device)
     _bulk_chunk_check(check, first, k)
     del check
     bt0 = first[0]
-    counts = planes.bulk_histogram_plain(*bt0, k)
-    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    bins = torch.empty(4 * planes.bulk_slots(bt0[0], lpad, k),
-                       dtype=torch.int32, device=device)
+    table = planes.bulk_histogram(*bt0, k)
+    starts, _cs = planes.bulk_starts(table)
+    mid = torch.empty(4 * planes.bulk_slots(bt0[0], lpad, k),
+                      dtype=torch.int32, device=device)
     plain_ms = [cuda_ms(lambda: planes.bulk_histogram_plain(*bt0, k), 3),
                 cuda_ms(lambda: planes.bulk_scatter_plain(
-                    bins, offsets[:-1].clone(), *bt0, k), 3)]
-    counts = torch.zeros(4 * ns, dtype=torch.int64, device=device)
+                    mid, starts, 0, *bt0, k), 3)]
+    block, cbin, _e = planes._coarse_entries(*bt0, k)
+    ids = block * nbins + cbin
+    hist_library_ms = cuda_ms(lambda: torch.bincount(
+        ids, minlength=table.numel()), 10)
+    del block, cbin, _e, ids, mid, starts
+    tables = torch.cat([planes.bulk_histogram(*bt, k) for bt in first])
+    starts, cstart = planes.bulk_starts(tables)
+    mid = torch.empty(4 * sum(planes.bulk_slots(bt[0], lpad, k)
+                              for bt in first), dtype=torch.int32,
+                      device=device)
+    row0 = 0
     for bt in first:
-        planes.bulk_histogram(counts, *bt, k)
+        planes.bulk_scatter(mid, starts, row0, *bt, k)
+        row0 += planes.bulk_blocks(bt[0])
+    del starts
+    counts = planes.bulk_slice_counts_plain(mid, cstart, k)  # warm-up
+    plain_ms.append(_events_ms([lambda: planes.bulk_slice_counts_plain(
+        mid, cstart, k)]))
+    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=device)
     offsets[1:] = torch.cumsum(counts, 0)
-    cursor = offsets[:-1].clone()
-    bins = torch.empty(4 * sum(planes.bulk_slots(bt[0], lpad, k)
-                               for bt in first), dtype=torch.int32,
-                       device=device)
-    for bt in first:
-        planes.bulk_scatter(bins, cursor, *bt, k)
+    bins = torch.empty_like(mid)
+    plain_ms.append(_events_ms([lambda: planes.bulk_refine_plain(
+        bins, offsets[:-1].clone(), mid, cstart, k)]))
+    del mid
+    torch.cuda.empty_cache()
     target = planes.alloc_planes(k, device)
     planes.bulk_apply_plain(target, bins, offsets, k)  # warm-up
     plain_ms.append(_events_ms([lambda: planes.bulk_apply_plain(
         target, bins, offsets, k)]))
-    del target, bins, cursor
+    del target, bins, counts
     torch.cuda.empty_cache()
     tagged = []
     for bt in first:
@@ -2782,8 +2956,12 @@ def phase_bulk_default_fill(pl, batches, lengths, lpad: int,
     tagged = torch.cat(tagged)
     torch.sort(tagged[:1 << 20])  # warm-up
     sort_ms = _events_ms([lambda: torch.sort(tagged)])
+    fine_ids = tagged >> planes.BULK_SLICE_BITS
+    torch.bincount(fine_ids[:1 << 20], minlength=4 * ns)  # warm-up
+    fine_library_ms = _events_ms([lambda: torch.bincount(
+        fine_ids, minlength=4 * ns)])
     n_sorted = tagged.numel()
-    del tagged
+    del tagged, fine_ids
     torch.cuda.empty_cache()
 
     # a set built beside the two resident sets with the cohorts' chunk
@@ -2798,20 +2976,19 @@ def phase_bulk_default_fill(pl, batches, lengths, lpad: int,
                              "differs from the atomic fill")
     del half, bulk
     torch.cuda.empty_cache()
+    library = [hist_library_ms, sort_ms, fine_library_ms, None, None]
     kernels = {}
-    for key, mean, count, bound, plain in zip(
-            ("hist", "scatter", "apply"), mean_ms, launches, bounds,
-            plain_ms):
-        kernels[key] = {"max_abs_err": 0, "ms": mean, "plain_ms": plain,
-                        "bound_ms": bound / count}
+    for key, count, bound, plain, lib_ms in zip(
+            BULK_PASSES, launches, bounds, plain_ms, library):
+        kernels[key] = {"max_abs_err": 0, "ms": pass_ms[key] / count,
+                        "plain_ms": plain, "bound_ms": bound / count,
+                        "library_ms": lib_ms}
     return {"wall_s": wall_s, "ms": ms, "fill_ms": fill_ms,
-            "chunk": chunk, "chunks": stats["chunks"],
+            "chunk": chunk, "chunks": n_chunks,
             "windows": stats["entries"] // 4, "bins": stats["bins"],
-            "kernels": kernels, "totals": {
-                key: mean * n for key, mean, n in zip(
-                    ("hist", "scatter", "apply"), mean_ms, launches)},
-            "bounds": bounds, "launches": launches, "profiled": seen,
-            "first_batches": len(first), "sort_ms": sort_ms,
+            "kernels": kernels, "totals": pass_ms, "passes_ms": sum(
+                pass_ms.values()), "bounds": bounds, "launches": launches,
+            "micro": micro, "first_batches": len(first), "sort_ms": sort_ms,
             "sorted": n_sorted, "held": held, "peak": peak,
             "beside_chunk": engine.BULK_CHUNK_BESIDE, "half_wall_s": half_wall,
             "half_ms": half_ms, "half_held": half_held,
@@ -2894,25 +3071,38 @@ def run_phase_default_fill_kernels(device, t0: float) -> dict:
         f"equal to its plain version's, " + _kernel_figures(mb)
         + f", {ml['a']} A and {ml['bcd']} B/C/D loads on "
         f"{fk['multi_sectors']} distinct sectors")
+    mc = bk["micro"]
+    log(f"phase 14 bulk build (K9), what binds a scatter: the level-1 roll "
+        f"alone (every window's four coarse bins and entries, nothing "
+        f"stored) {mc['decode_ms_batch']:.4f} ms a {PLANE_BATCH}-read batch "
+        f"over {mc['decode_batches']} batches, "
+        f"{mc['decode_windows_per_s']:.4g} windows/s; {mc['stores']} 4-byte "
+        f"stores (one batch's entries) in runs of "
+        + ", ".join(f"{run}: {fig['ms']:.4f} ms ({fig['entries_per_s']:.4g}"
+                    f"/s)" for run, fig in mc["store_runs"].items())
+        + " consecutive words at pseudo-random starts")
     log(f"phase 14 bulk build (K9): the same {DEFAULT_FILL_READS} reads "
         f"({bk['windows']} windows) in chunks of {bk['chunk']} window slots "
-        f"({bk['chunks']} chunks, {bk['bins']} bins holding entries) in "
+        f"({bk['chunks']} chunks, {bk['bins']} fine bins holding entries) in "
         f"{bk['wall_s']:.3f} s, {bk['ms']:.3f} ms by CUDA events, planes "
-        f"equal to the atomic fill's; device ms (torch.profiler) and bound "
+        f"equal to the atomic fill's; pass by pass (CUDA events around each "
+        f"pass, {bk['passes_ms']:.3f} ms in all, equal planes), ms and bound "
         f"ms of all launches: "
         + ", ".join(f"{key} {bk['totals'][key]:.3f} (bound {bound:.3f}, "
-                    f"{100 * bound / bk['totals'][key]:.1f}%; {n} launches, "
-                    f"{got} profiled)"
-                    for key, bound, n, got in zip(
-                        ("hist", "scatter", "apply"), bk["bounds"],
-                        bk["launches"], bk["profiled"]))
+                    f"{100 * bound / bk['totals'][key]:.1f}%; {n} launches)"
+                    for key, bound, n in zip(BULK_PASSES, bk["bounds"],
+                                             bk["launches"]))
         + f"; per launch: "
         + "; ".join(f"{key} " + _kernel_figures(bk["kernels"][key])
-                    for key in ("hist", "scatter", "apply"))
+                    + (f", library {bk['kernels'][key]['library_ms']:.4f}"
+                       if bk["kernels"][key]["library_ms"] is not None
+                       else "")
+                    for key in BULK_PASSES)
         + f" (plain: one batch, one batch, the first chunk of "
-        f"{bk['first_batches']} batches, each kernel equal to its plain "
-        f"version there); torch.sort of that chunk's {bk['sorted']} "
-        f"plane-tagged int64 keys {bk['sort_ms']:.3f} ms; "
+        f"{bk['first_batches']} batches thrice, each kernel equal to its "
+        f"plain version there; library: torch.bincount of one batch's "
+        f"(block, coarse bin) ids, torch.sort of that chunk's {bk['sorted']} "
+        f"plane-tagged int64 keys, torch.bincount of their fine bins); "
         f"max_memory_allocated {bk['peak']} B ({bk['held']} B held before); "
         f"beside them with the cohorts' chunk of {bk['beside_chunk']} slots: "
         f"{bk['half_wall_s']:.3f} s, {bk['half_ms']:.3f} ms, equal planes, "
@@ -3146,7 +3336,8 @@ def _kernel_fns(stream, planes, tfilter):
             planes.probe_planes_multi, planes.build_planes_range,
             planes.probe_planes_part_a, planes.probe_planes_part,
             tfilter.class_counts_packed, planes.bulk_histogram,
-            planes.bulk_scatter, planes.bulk_apply)
+            planes.bulk_scatter, planes.bulk_slice_counts, planes.bulk_refine,
+            planes.bulk_apply)
 
 
 def zero_counts(stream, planes):
@@ -3158,11 +3349,13 @@ def zero_counts(stream, planes):
 
 def _build_fns(planes):
     """The wrappers of the dense-plane build the card takes by default
-    (engine.CARD_BULK_BUILD): the bulk build's three, or the per-batch
+    (engine.CARD_BULK_BUILD): the bulk build's five, or the per-batch
     build."""
     from commet_tpu_torch.engine import engine
     if engine.CARD_BULK_BUILD:
-        return (planes.bulk_histogram, planes.bulk_scatter, planes.bulk_apply)
+        return (planes.bulk_histogram, planes.bulk_scatter,
+                planes.bulk_slice_counts, planes.bulk_refine,
+                planes.bulk_apply)
     return (planes.build_planes,)
 
 
@@ -3563,11 +3756,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     chunks = phase_bulk_edges(device, np.random.default_rng(10))
-    log(f"phase bulk edges: bulk_histogram, bulk_scatter and bulk_apply "
-        f"equal to their plain versions and BulkChunk to the per-batch build "
-        f"and bulk_build_planes_plain at k in {EDGE_K} on the same reads in "
-        f"{chunks} chunks (three 2,000-read batches a chunk, a smaller last "
-        f"one, one with no complete window) "
+    log(f"phase bulk edges: bulk_histogram, bulk_scatter, "
+        f"bulk_slice_counts, bulk_refine and bulk_apply equal to their plain "
+        f"versions and BulkChunk to the per-batch build and "
+        f"bulk_build_planes_plain at k in {EDGE_K} on the same reads and a "
+        f"batch skewed into plane D's last region in {chunks} chunks (three "
+        f"2,000-read batches a chunk, a smaller last one, one with no "
+        f"complete window) "
         f"({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
     mk = run_phase_mesh_kernels(device)
@@ -3689,11 +3884,12 @@ def main(argv=None) -> int:
          **NO_LIBRARY}] + [
         {"name": name, "route": "cuda", "source": PLANES_SOURCE,
          "replaces": replaces, "launches": main_planes[name],
-         **bulk["kernels"][key], "bound_by": "bytes",
-         "library_ms": bulk["sort_ms"] if key == "scatter" else None}
+         **bulk["kernels"][key], "bound_by": "bytes"}
         for name, replaces, key in (
             ("bulk_histogram", BULK_HIST_REPLACES, "hist"),
             ("bulk_scatter", BULK_SCATTER_REPLACES, "scatter"),
+            ("bulk_slice_counts", BULK_HIST_REPLACES, "slice_counts"),
+            ("bulk_refine", BULK_SCATTER_REPLACES, "refine"),
             ("bulk_apply", BULK_APPLY_REPLACES, "apply"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

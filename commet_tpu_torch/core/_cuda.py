@@ -63,15 +63,30 @@ _SIGNATURES = {
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, *_BATCH,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p],
-               "commet_bulk_hist": [ctypes.c_void_p, ctypes.c_int64,
+               "commet_bulk_hist": [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int, *_BATCH, ctypes.c_int,
                                     ctypes.c_void_p],
                "commet_bulk_scatter": [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int64, ctypes.c_int, *_BATCH,
+                                       ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int, ctypes.c_int, *_BATCH,
                                        ctypes.c_int, ctypes.c_void_p],
+               "commet_bulk_refine": [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p],
                "commet_bulk_apply": [ctypes.c_void_p, ctypes.c_int64,
                                      ctypes.c_int64, ctypes.c_int64,
                                      ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p],
+               # measurement only (chip_smoke.py): the level-1 roll alone and
+               # 4-byte stores in runs
+               "commet_bulk_decode": [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, *_BATCH, ctypes.c_int,
+                                      ctypes.c_void_p],
+               "commet_store_runs": [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_void_p]},
     "filter": {"commet_class_counts": [ctypes.c_void_p, ctypes.c_int64,
                                        ctypes.c_void_p, ctypes.c_int64,

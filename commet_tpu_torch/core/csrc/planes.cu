@@ -99,28 +99,53 @@
 //     default k = 33) against 4 GiB of planes. The per-batch build's random
 //     atomics each cost a sector read and write in device memory (22% of
 //     their bytes bound). Here a plane is cut into slices of S = 2^14
-//     words (64 KiB of shared memory, two apply blocks an SM) and a
-//     window's bit in plane p goes to bin p * nslices + (key >> 19) as its
-//     slice-relative address key & (2^19 - 1) (uint32). commet_bulk_hist
-//     counts each batch's entries per bin in shared memory (a block row a
-//     plane and 16,384 bins); the caller scans the chunk's counts into bin
-//     offsets; commet_bulk_scatter appends each entry to its bin: a block
-//     (a row a plane and 8,192 bins) counts its entries per bin, takes a
-//     run of each bin's indices with one atomic and fills it, so a bin
-//     costs one device-wide atomic a block (a cursor an entry, even
-//     aggregated over a warp, ran at the L2's atomic rate); commet_bulk_apply
-//     runs a block per bin, loads the slice once, ORs the bin's bits in
-//     with shared-memory atomics and stores it once. Per chunk: the
-//     entries written and read once (4 B a plane a window), each plane
-//     word read and written once, the batches read once a grid row (at
-//     k = 33 the histogram's 4 rows, the scatter's 8 rows twice).
-//     The scatter's writes are what is left: a block's run of a bin is a
-//     few entries, so they land as scattered 4-byte writes, about the
-//     card's random-access rate. Plane D's keys (a | b) are skewed, so its
-//     last bins are the largest: the apply runs the bins from the last
-//     down. Measured on an H100 (PERF.md): 128 KiB slices were slower,
-//     and so were 4 MiB regions ORed in with L2 atomics in region order
-//     (the L2's atomic rate, not the plane's bytes, bound them).
+//     words (64 KiB of shared memory, two apply blocks an SM): a window's
+//     bit in plane p is the entry key & (2^19 - 1) of fine bin p * nslices
+//     + (key >> 19), and commet_bulk_apply runs a block per fine bin, loads
+//     the slice once, ORs the bin's entries in with shared-memory atomics
+//     and stores it once. What is left is grouping a chunk's entries by
+//     fine bin (65,536 of them at k = 33) so each bin's are contiguous, and
+//     one random 4-byte store an entry (the design before this one) runs at
+//     the card's scattered-store rate, a sector touched a store. So the
+//     grouping is a two-level partition, each level ranking its entries in
+//     shared memory and storing each bin's run with consecutive lanes:
+//     level 1 into coarse bins, regions of R = 2^22 words (16 MiB; the
+//     whole plane below k = 27, at least a slice), 64 a plane and 256 bins
+//     at k = 33, each entry region-relative (27 bits); level 2 each
+//     region's entries into its R / S slices, 256 where k >= 27. 256 x 256
+//     balances the two levels' runs at COMMET's default k.
+//       commet_bulk_hist (per batch): a block of 256 reads (a thread a
+//     read) rolls their windows once and counts all four planes' coarse
+//     bins in shared memory; it writes its row of a [blocks, bins] table,
+//     no global atomic.
+//       The caller scans the chunk's tables in (bin, batch, block) order:
+//     each (batch, block, bin) gets the index of its run in `mid`, so mid
+//     holds each coarse bin's entries contiguously, with no atomic at all.
+//       commet_bulk_scatter (level 1, per batch): the same blocks over the
+//     same reads roll each read once more, 16 positions a tile: a tile's
+//     keys stay in registers, its entries (at most 16 x 4 x 256 = 16,384)
+//     are counted per coarse bin, scanned and placed in shared memory,
+//     then each bin's run is stored at its block's index by consecutive
+//     lanes. Runs: a 100 bp read has 68 windows, so a block's 256 reads
+//     give 69,632 entries in 5 tiles, about 54 entries (218 B) a (tile,
+//     bin) run at 256 bins (a full tile, 64); the design before this one
+//     stored about 4 entries a (block, bin) run, one sector a store.
+//       commet_bulk_refine (level 2, per chunk, two launches): tiles of up
+//     to 16,384 entries of one coarse bin (plane D's skewed regions, a |
+//     b, take many tiles: about 18% of plane D's entries lie in its last
+//     region); the counting launch adds each tile's entries per slice to
+//     the fine counts (one atomic a (tile, slice)), the caller scans them
+//     into offsets, and the placing launch takes each (tile, slice)'s run
+//     with one atomic on the slice's cursor, ranks the tile in shared
+//     memory and stores each slice's run with consecutive lanes, about 64
+//     entries a (tile, slice) run; the entries become slice-relative.
+//     Per chunk: each batch rolled twice (at k = 33 the design before this
+//     one rolled it 20 times: 4 histogram rows, 8 scatter rows twice), the
+//     entries written twice and read three times, each plane word of a
+//     bin that holds entries read and written once. Measured on an H100
+//     (PERF.md): 128 KiB slices were slower, and so were 4 MiB regions
+//     ORed in with L2 atomics in region order (the L2's atomic rate, not
+//     the plane's bytes, bound them).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -325,6 +350,33 @@ struct ReadCursor {
   }
 };
 
+// One read's forward keys rolled a position at a time from 0 (after p, the
+// window ending at p: base p at bit 0, its first base at bit k - 1); a row
+// at or past bt.b has no valid position. Every build rolls its keys so.
+struct Roller {
+  ReadCursor rc;
+  uint64_t ka = 0, kb = 0;
+  int run = 0;
+
+  __device__ Roller(const Batch& bt, int64_t row)
+      : rc(bt, row < bt.b ? row : 0) {
+    if (row >= bt.b) rc.end = 0;
+  }
+
+  // rolls position p; true when the k bases ending there are all valid
+  __device__ __forceinline__ bool step(int p, int k, uint64_t kmask) {
+    const int c = p < rc.end ? rc.code(p) : -1;
+    if (c < 0) {
+      run = 0;
+      return false;
+    }
+    ka = ((ka << 1) | (uint64_t)(c >> 1)) & kmask;
+    kb = ((kb << 1) | (uint64_t)(c & 1)) & kmask;
+    if (run < k) ++run;
+    return run >= k;
+  }
+};
+
 // Sets a key's bit in a shard holding words [lo, lo + wl) of its plane: no
 // atomic for a word outside the range (below lo the difference wraps).
 __device__ __forceinline__ void or_in_range(uint32_t* __restrict__ plane,
@@ -344,20 +396,10 @@ __global__ void build_kernel(uint32_t* __restrict__ planes, int64_t pw,
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        row < bt.b; row += stride) {
-    ReadCursor rc(bt, row);
-    uint64_t ka = 0, kb = 0;
-    int run = 0;
-    for (int p = 0; p < rc.end; ++p) {
-      const int c = rc.code(p);
-      if (c < 0) {
-        run = 0;
-        continue;
-      }
-      ka = ((ka << 1) | (uint64_t)(c >> 1)) & kmask;
-      kb = ((kb << 1) | (uint64_t)(c & 1)) & kmask;
-      if (run < k) ++run;
-      if (run < k) continue;
-      const uint64_t kc = ka ^ kb, kd = ka | kb;
+    Roller r(bt, row);
+    for (int p = 0; p < r.rc.end; ++p) {
+      if (!r.step(p, k, kmask)) continue;
+      const uint64_t ka = r.ka, kb = r.kb, kc = ka ^ kb, kd = ka | kb;
       if constexpr (Ranged) {
         or_in_range(planes, lo, pw, ka);
         or_in_range(planes + pw, lo, pw, kb);
@@ -511,127 +553,257 @@ __global__ void probe_part_veto_kernel(const uint32_t* __restrict__ shard,
 }
 
 // ---------------------------------------------------------------------------
-// The bulk build (K9). A bin is one slice of one plane: bin = plane *
+// The bulk build (K9). A fine bin is one slice of one plane: bin = plane *
 // nslices + (key >> sb), entry = key & (2^sb - 1), bit entry & 31 of word
-// entry >> 5 of the slice; sb = 5 + log2(slice words).
+// entry >> 5 of the slice; sb = 5 + log2(slice words). A coarse bin is one
+// region of one plane: bin = plane * nreg + (key >> rb), region entry key &
+// (2^rb - 1); a region holds spr = 2^(rb - sb) slices, so fine bin = coarse
+// bin * spr + (region entry >> sb).
 
-constexpr int kHistBins = 16384;     // bins one histogram block counts
-constexpr int kScatterBins = 8192;   // bins one scatter block places
-constexpr int kBulkThreads = 1024;   // a histogram or scatter block's reads
-constexpr int kHistBlocks = 32;      // blocks of a histogram row at most
-constexpr int kScatterBlocks = 128;  // blocks of a scatter row at most
+constexpr int kRowReads = 256;   // reads (a thread each) of a hist / level-1
+                                 // block: block j takes rows 256j .. 256j+255
+constexpr int kSteps = 16;       // positions a level-1 tile rolls
+constexpr int kTile1 = 4 * kSteps * kRowReads;  // entries of a level-1 tile
+constexpr int kRefineThreads = 1024;
+constexpr int kTile2 = 16 * kRefineThreads;     // entries of a level-2 tile
+constexpr int kMaxSpr = 256;                    // slices a region at most
 constexpr int kApplyThreads = 1024;
 
 __device__ __forceinline__ uint64_t plane_key(int p, uint64_t a, uint64_t b) {
   return p == 0 ? a : p == 1 ? b : p == 2 ? (a ^ b) : (a | b);
 }
 
-// Rolls the forward keys of read `row` over its positions as build_kernel
-// does and calls f(ok, ka, kb) at each, ok when the k bases ending there
-// are all valid. Warp-wide: the lanes of a warp hold rows row0 .. row0 + 31
-// (a row at or past bt.b has no valid position) and make the same calls, up
-// to the warp's longest read.
-template <class F>
-__device__ __forceinline__ void rolled_windows(const Batch& bt, int64_t row,
-                                               int k, F&& f) {
-  const bool live = row < bt.b;
-  ReadCursor rc(bt, live ? row : 0);
-  if (!live) rc.end = 0;
-  const int wend = __reduce_max_sync(kFull, rc.end);
-  const uint64_t kmask = low_mask(k);
-  uint64_t ka = 0, kb = 0;
-  int run = 0;
-  for (int p = 0; p < wend; ++p) {
-    const int c = p < rc.end ? rc.code(p) : -1;
-    if (c < 0) {
-      run = 0;
-    } else {
-      ka = ((ka << 1) | (uint64_t)(c >> 1)) & kmask;
-      kb = ((kb << 1) | (uint64_t)(c & 1)) & kmask;
-      if (run < k) ++run;
+// out[i] = in[0] + .. + in[i - 1] for i <= n (out holds n + 1 words), by
+// the whole block (a multiple of 32 threads); scratch: 32 shared words.
+// Ends with the block synchronised.
+__device__ void block_scan(const uint32_t* in, uint32_t* out, int n,
+                           uint32_t* scratch) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  uint32_t sum = 0;
+  for (int i = lo; i < hi; ++i) sum += in[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  uint32_t x = sum;  // inclusive over the warp's lanes
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t w = lane < nw ? scratch[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w += y;
     }
-    f(run >= k, ka, kb);
+    if (lane < nw) scratch[lane] = w;  // inclusive over the warps
   }
+  __syncthreads();
+  uint32_t run = x - sum + (warp ? scratch[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    out[i] = run;
+    run += in[i];
+  }
+  if (threadIdx.x == 0) out[n] = scratch[nw - 1];
+  __syncthreads();
 }
 
-// The rows of the bulk grids: row blockIdx.y is plane blockIdx.y / ranges
-// and its bins [lo, lo + n), lo = (blockIdx.y % ranges) * width.
-struct BinRange {
-  int plane;
-  int64_t lo;
-  int n;
-  __device__ BinRange(int64_t nslices, int ranges, int width) {
-    plane = blockIdx.y / ranges;
-    lo = (int64_t)(blockIdx.y % ranges) * width;
-    n = (int)(nslices - lo < width ? nslices - lo : width);
-  }
-  // the key's bin less lo, or -1 outside the range
-  __device__ __forceinline__ int64_t bin(uint64_t key, int sb) const {
-    const int64_t b = (int64_t)(key >> sb) - lo;
-    return b >= 0 && b < n ? b : -1;
-  }
-};
-
-// A thread per read: the block counts the batch's entries in its row's bins
-// in shared memory (hist: [kHistBins] uint32), then adds its nonzero counts
-// to counts[plane * nslices + bin]. Few blocks a row, each striding over
-// many reads, keep those adds few (the scatter measured slower so).
-__global__ void __launch_bounds__(kBulkThreads)
-    bulk_hist_kernel(unsigned long long* __restrict__ counts, int64_t nslices,
-                     int ranges, int sb, Batch bt, int k) {
+// A thread per read, block j over rows 256j .. 256j + 255: the block counts
+// its windows' entries per coarse bin (all four planes) in shared memory
+// (hist: [nbins] uint32) and writes them as row j of table ([blocks, nbins]
+// int32). The warp rolls to its longest read.
+__global__ void __launch_bounds__(kRowReads)
+    bulk_hist_kernel(int32_t* __restrict__ table, int nbins, int nreg,
+                     int rb, Batch bt, int k) {
   extern __shared__ uint32_t hist[];
-  const BinRange r(nslices, ranges, kHistBins);
-  for (int i = threadIdx.x; i < r.n; i += blockDim.x) hist[i] = 0;
+  for (int i = threadIdx.x; i < nbins; i += blockDim.x) hist[i] = 0;
   __syncthreads();
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t row0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-       row0 < bt.b; row0 += step)
-    rolled_windows(bt, row0 + (threadIdx.x & 31), k,
-                   [&](bool ok, uint64_t a, uint64_t b) {
-                     const int64_t bin = r.bin(plane_key(r.plane, a, b), sb);
-                     if (ok && bin >= 0) atomicAdd(hist + bin, 1u);
-                   });
+  Roller r(bt, (int64_t)blockIdx.x * kRowReads + threadIdx.x);
+  const int wend = __reduce_max_sync(kFull, r.rc.end);
+  const uint64_t kmask = low_mask(k);
+  for (int p = 0; p < wend; ++p) {
+    if (!r.step(p, k, kmask)) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      atomicAdd(hist + q * nreg + (int)(plane_key(q, r.ka, r.kb) >> rb), 1u);
+  }
   __syncthreads();
-  unsigned long long* out = counts + r.plane * nslices + r.lo;
-  for (int i = threadIdx.x; i < r.n; i += blockDim.x)
-    if (hist[i]) atomicAdd(out + i, (unsigned long long)hist[i]);
+  int32_t* out = table + (int64_t)blockIdx.x * nbins;
+  for (int i = threadIdx.x; i < nbins; i += blockDim.x)
+    out[i] = (int32_t)hist[i];
 }
 
-// A thread per read, rolled twice: the block counts its entries in its
-// row's bins in shared memory (run: [kScatterBins] uint64), takes a run of
-// each bin's indices with one atomicAdd on the bin's cursor, then places
-// each entry at the next index of its bin's run (a shared-memory atomic).
-// A bin costs one device-wide atomic a block, so plane D's hot bins queue
-// in shared memory, not at one L2 address.
-__global__ void __launch_bounds__(kBulkThreads)
-    bulk_scatter_kernel(unsigned long long* __restrict__ cursor,
-                        uint32_t* __restrict__ bins, int64_t nslices,
-                        int ranges, int sb, Batch bt, int k) {
-  extern __shared__ unsigned long long run[];
-  const BinRange r(nslices, ranges, kScatterBins);
-  const uint64_t emask = low_mask(sb);
-  for (int i = threadIdx.x; i < r.n; i += blockDim.x) run[i] = 0;
+// Level 1: the histogram's blocks over the same rows, each read rolled once,
+// kSteps positions a tile with the keys in registers. Per tile the block
+// counts its entries per coarse bin, scans the counts, places each entry
+// (region-relative, key & (2^rb - 1)) at its bin's next slot of a staging
+// tile in shared memory, and stores the tile: bin c's run at its next index
+// in mid, consecutive lanes on consecutive words. Bin c of this block starts
+// at starts[c * nrows + row0 + blockIdx.x] (the caller's scan of the
+// tables). Store = false only rolls and bins the windows and XORs what it
+// would store into one word a warp of `mid` (the decode rate alone).
+template <bool Store>
+__global__ void __launch_bounds__(kRowReads, 2)
+    bulk_scatter_kernel(uint32_t* __restrict__ mid,
+                        const int64_t* __restrict__ starts, int64_t nrows,
+                        int64_t row0, int nbins, int nreg, int rb, Batch bt,
+                        int k) {
+  extern __shared__ unsigned long long cursor1[];  // [nbins] mid indices
+  uint32_t* stage = reinterpret_cast<uint32_t*>(cursor1 + nbins);  // kTile1
+  uint16_t* sbin = reinterpret_cast<uint16_t*>(stage + kTile1);    // kTile1
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(sbin + kTile1);      // nbins
+  uint32_t* lstart = cnt + nbins;                                  // + 1
+  __shared__ uint32_t scratch[32];
+  __shared__ int bend;
+  const int tid = threadIdx.x;
+  Roller r(bt, (int64_t)blockIdx.x * kRowReads + tid);
+  if (tid == 0) bend = 0;
+  if constexpr (Store) {
+    for (int c = tid; c < nbins; c += kRowReads) {
+      cursor1[c] = (unsigned long long)starts[c * nrows + row0 + blockIdx.x];
+      cnt[c] = 0;
+    }
+  }
   __syncthreads();
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-  const int lane = threadIdx.x & 31;
-  for (int64_t row0 = first; row0 < bt.b; row0 += step)
-    rolled_windows(bt, row0 + lane, k, [&](bool ok, uint64_t a, uint64_t b) {
-      const int64_t bin = r.bin(plane_key(r.plane, a, b), sb);
-      if (ok && bin >= 0) atomicAdd(run + bin, 1ull);
-    });
+  atomicMax(&bend, r.rc.end);
   __syncthreads();
-  unsigned long long* cur = cursor + r.plane * nslices + r.lo;
-  for (int i = threadIdx.x; i < r.n; i += blockDim.x)
-    if (run[i]) run[i] = atomicAdd(cur + i, run[i]);
+  const int end = bend;
+  const uint64_t kmask = low_mask(k), rmask = low_mask(rb);
+  uint32_t sink = 0;
+  for (int p0 = 0; p0 < end; p0 += kSteps) {
+    uint64_t ka[kSteps], kb[kSteps];
+    uint32_t ok = 0;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      if (p0 + s < end && r.step(p0 + s, k, kmask)) ok |= 1u << s;
+      ka[s] = r.ka;
+      kb[s] = r.kb;
+    }
+    if constexpr (!Store) {
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint64_t key = plane_key(q, ka[s], kb[s]);
+          if (ok >> s & 1u)
+            sink ^= (uint32_t)(q * nreg + (int)(key >> rb)) ^
+                    (uint32_t)(key & rmask);
+        }
+    } else {
+      if (!__syncthreads_or(ok)) continue;  // a tile without a window
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (ok >> s & 1u)
+            atomicAdd(cnt + q * nreg +
+                          (int)(plane_key(q, ka[s], kb[s]) >> rb), 1u);
+      __syncthreads();
+      block_scan(cnt, lstart, nbins, scratch);
+      for (int c = tid; c < nbins; c += kRowReads) cnt[c] = lstart[c];
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint64_t key = plane_key(q, ka[s], kb[s]);
+          const int c = q * nreg + (int)(key >> rb);
+          if (ok >> s & 1u) {
+            const uint32_t at = atomicAdd(cnt + c, 1u);
+            stage[at] = (uint32_t)(key & rmask);
+            sbin[at] = (uint16_t)c;
+          }
+        }
+      __syncthreads();
+      const int n = (int)lstart[nbins];
+      for (int i = tid; i < n; i += kRowReads) {
+        const int c = sbin[i];
+        mid[cursor1[c] + (i - lstart[c])] = stage[i];
+      }
+      __syncthreads();
+      for (int c = tid; c < nbins; c += kRowReads) {
+        cursor1[c] += lstart[c + 1] - lstart[c];
+        cnt[c] = 0;
+      }
+      __syncthreads();
+    }
+  }
+  if constexpr (!Store) {
+    sink = __reduce_xor_sync(kFull, sink);
+    if ((tid & 31) == 0) atomicXor(mid + (blockIdx.x * kRowReads + tid) / 32,
+                                   sink);
+  }
+}
+
+// Level 2, a block per tile: tile t is entries [lo, lo + kTile2) of coarse
+// bin c's run mid[cstart[c] .. cstart[c + 1]), c the bin with tprefix[c] <=
+// t < tprefix[c + 1] (tiles of a bin: the caller's ceil(count / kTile2),
+// scanned), lo = cstart[c] + (t - tprefix[c]) * kTile2; blocks past the last
+// tile exit. The block counts its entries per slice in shared memory (cnt:
+// [spr]). Counting (Place = false): adds each slice's count to fine[c * spr
+// + s] (slot, one atomic a (tile, slice)). Placing: takes a run of each
+// slice's indices in bins with one atomic on its cursor (slot), places each
+// entry, slice-relative (& (2^sb - 1)), at its slice's next slot of a
+// staging tile (dynamic shared memory: kTile2 words, then kTile2 slice
+// bytes), and stores each slice's run with consecutive lanes. The tile is
+// read from mid twice (the second time mostly from the L2).
+template <bool Place>
+__global__ void __launch_bounds__(kRefineThreads, 2)
+    bulk_refine_kernel(const uint32_t* __restrict__ mid,
+                       const int64_t* __restrict__ cstart,
+                       const int64_t* __restrict__ tprefix, int nbins,
+                       int spr, int sb, unsigned long long* __restrict__ slot,
+                       uint32_t* __restrict__ bins) {
+  __shared__ uint32_t cnt[kMaxSpr], lstart[kMaxSpr + 1], scratch[32];
+  __shared__ unsigned long long base[kMaxSpr];
+  __shared__ int bin;
+  const int64_t t = blockIdx.x;
+  if (t >= tprefix[nbins]) return;  // block-uniform
+  if (threadIdx.x == 0) {  // the greatest c with tprefix[c] <= t
+    int lo = 0, hi = nbins;
+    while (hi - lo > 1) {
+      const int m = (lo + hi) / 2;
+      if (tprefix[m] <= t) lo = m; else hi = m;
+    }
+    bin = lo;
+  }
+  for (int s = threadIdx.x; s < spr; s += blockDim.x) cnt[s] = 0;
   __syncthreads();
-  for (int64_t row0 = first; row0 < bt.b; row0 += step)
-    rolled_windows(bt, row0 + lane, k, [&](bool ok, uint64_t a, uint64_t b) {
-      const uint64_t key = plane_key(r.plane, a, b);
-      const int64_t bin = r.bin(key, sb);
-      if (ok && bin >= 0)
-        bins[atomicAdd(run + bin, 1ull)] = (uint32_t)(key & emask);
-    });
+  const int c = bin;
+  const int64_t lo = cstart[c] + (t - tprefix[c]) * kTile2;
+  const int64_t rest = cstart[c + 1] - lo;
+  const int n = (int)(rest < kTile2 ? rest : kTile2);
+  const uint32_t* src = mid + lo;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    atomicAdd(cnt + (src[i] >> sb), 1u);
+  __syncthreads();
+  unsigned long long* fine = slot + (int64_t)c * spr;
+  if constexpr (!Place) {
+    for (int s = threadIdx.x; s < spr; s += blockDim.x)
+      if (cnt[s]) atomicAdd(fine + s, (unsigned long long)cnt[s]);
+  } else {
+    extern __shared__ uint32_t stage[];  // [kTile2]
+    uint8_t* sslice = reinterpret_cast<uint8_t*>(stage + kTile2);  // kTile2
+    for (int s = threadIdx.x; s < spr; s += blockDim.x)
+      base[s] = cnt[s] ? atomicAdd(fine + s, (unsigned long long)cnt[s]) : 0;
+    block_scan(cnt, lstart, spr, scratch);
+    for (int s = threadIdx.x; s < spr; s += blockDim.x) cnt[s] = lstart[s];
+    __syncthreads();
+    const uint32_t emask = (uint32_t)low_mask(sb);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint32_t v = __ldcs(src + i);
+      const uint32_t s = v >> sb;
+      const uint32_t at = atomicAdd(cnt + s, 1u);
+      stage[at] = v & emask;
+      sslice[at] = (uint8_t)s;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int s = sslice[i];
+      bins[base[s] + (i - lstart[s])] = stage[i];
+    }
+  }
 }
 
 // A block per bin, the last bin first: bin = plane * nslices + j holds
@@ -820,50 +992,79 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// The grid of a histogram or scatter: (blocks of kBulkThreads reads, at
-// most `blocks`, 4 planes x ranges of `width` bins).
-dim3 bulk_grid(int64_t b, int64_t nslices, int width, int blocks,
-               int64_t& ranges) {
-  ranges = (nslices + width - 1) / width;
-  int64_t gx = (b + kBulkThreads - 1) / kBulkThreads;
-  if (gx > blocks) gx = blocks;
-  return dim3((unsigned)gx, (unsigned)(4 * ranges));
+// The blocks of a histogram or level-1 launch: one a 256 reads, no stride
+// (the tables' rows are these blocks).
+unsigned row_blocks(int64_t b) {
+  return (unsigned)((b + kRowReads - 1) / kRowReads);
 }
 
-// Adds a batch's entries per bin to counts ([4 * nslices] uint64).
-extern "C" int commet_bulk_hist(void* counts, int64_t nslices, int sb,
+// Dynamic shared memory of a level-1 block: cursors, staging tile, its bins,
+// counts and starts.
+int scatter_smem(int nbins) {
+  return nbins * 8 + kTile1 * 6 + (2 * nbins + 1) * 4;
+}
+
+// Writes a batch's per-block coarse-bin counts: table [ceil(b / 256),
+// nbins] int32, nbins = 4 * nreg.
+extern "C" int commet_bulk_hist(void* table, int nbins, int rb,
                                 const void* codes2, int64_t nw2,
                                 const void* aux, int64_t nwv, int clean,
                                 int64_t b, int length, int k, void* stream) {
   if (b <= 0) return 0;
-  int64_t ranges = 0;
-  const dim3 grid = bulk_grid(b, nslices, kHistBins, kHistBlocks, ranges);
-  const int smem = kHistBins * (int)sizeof(uint32_t);
-  cudaError_t err = allow_smem(bulk_hist_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  bulk_hist_kernel<<<grid, kBulkThreads, smem, (cudaStream_t)stream>>>(
-      (unsigned long long*)counts, nslices, (int)ranges, sb,
+  const int smem = nbins * (int)sizeof(uint32_t);
+  bulk_hist_kernel<<<row_blocks(b), kRowReads, smem,
+                     (cudaStream_t)stream>>>(
+      (int32_t*)table, nbins, nbins / 4, rb,
       make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
   return (int)cudaGetLastError();
 }
 
-// Appends a batch's entries to their bins: cursor ([4 * nslices] uint64,
-// each bin's next free index in bins) advances past them.
-extern "C" int commet_bulk_scatter(void* cursor, void* bins, int64_t nslices,
-                                   int sb, const void* codes2, int64_t nw2,
+// Level 1 of a batch whose blocks are rows row0 .. of starts ([nbins,
+// nrows] int64, each (bin, row)'s first index in mid): writes the batch's
+// region-relative entries into mid.
+extern "C" int commet_bulk_scatter(void* mid, const void* starts,
+                                   int64_t nrows, int64_t row0, int nbins,
+                                   int rb, const void* codes2, int64_t nw2,
                                    const void* aux, int64_t nwv, int clean,
                                    int64_t b, int length, int k,
                                    void* stream) {
   if (b <= 0) return 0;
-  int64_t ranges = 0;
-  const dim3 grid =
-      bulk_grid(b, nslices, kScatterBins, kScatterBlocks, ranges);
-  const int smem = kScatterBins * (int)sizeof(unsigned long long);
-  cudaError_t err = allow_smem(bulk_scatter_kernel, smem);
+  const int smem = scatter_smem(nbins);
+  cudaError_t err = allow_smem(bulk_scatter_kernel<true>, smem);
   if (err != cudaSuccess) return (int)err;
-  bulk_scatter_kernel<<<grid, kBulkThreads, smem, (cudaStream_t)stream>>>(
-      (unsigned long long*)cursor, (uint32_t*)bins, nslices, (int)ranges, sb,
-      make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  bulk_scatter_kernel<true><<<row_blocks(b), kRowReads, smem,
+                              (cudaStream_t)stream>>>(
+      (uint32_t*)mid, (const int64_t*)starts, nrows, row0, nbins, nbins / 4,
+      rb, make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  return (int)cudaGetLastError();
+}
+
+// Level 2 of a chunk: mid holds coarse bin c's entries at [cstart[c],
+// cstart[c + 1]) ([nbins + 1] int64), tprefix ([nbins + 1] int64) its tiles'
+// scan, ntiles >= tprefix[nbins] blocks. place = 0: adds each slice's
+// entries to slot (fine counts, [nbins * spr] uint64); place = 1: slot holds
+// each slice's next index in bins (advanced past its entries), and the
+// slice-relative entries are written there.
+extern "C" int commet_bulk_refine(const void* mid, const void* cstart,
+                                  const void* tprefix, int64_t ntiles,
+                                  int nbins, int spr, int sb, void* slot,
+                                  void* bins, int place, void* stream) {
+  if (ntiles <= 0) return 0;
+  if (ntiles > INT32_MAX || spr > kMaxSpr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* m = (const uint32_t*)mid;
+  const int64_t *cs = (const int64_t*)cstart, *tp = (const int64_t*)tprefix;
+  unsigned long long* sl = (unsigned long long*)slot;
+  if (!place) {
+    bulk_refine_kernel<false><<<(unsigned)ntiles, kRefineThreads, 0, st>>>(
+        m, cs, tp, nbins, spr, sb, sl, nullptr);
+  } else {
+    const int smem = kTile2 * 5;
+    cudaError_t err = allow_smem(bulk_refine_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    bulk_refine_kernel<true><<<(unsigned)ntiles, kRefineThreads, smem, st>>>(
+        m, cs, tp, nbins, spr, sb, sl, (uint32_t*)bins);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -880,5 +1081,63 @@ extern "C" int commet_bulk_apply(void* planes, int64_t pw, int64_t nslices,
                       (cudaStream_t)stream>>>(
       (uint32_t*)planes, pw, nslices, sw, (const uint32_t*)bins,
       (const unsigned long long*)offsets);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Measurement only (chip_smoke.py's bulk build phase; no wrapper, on no
+// path of the program).
+
+// The level-1 roll alone: every window's four coarse bins and entries of the
+// batch computed and XORed into out ([ceil(b / 32)] uint32, one word a
+// warp), nothing staged or stored: the decode rate.
+extern "C" int commet_bulk_decode(void* out, int nbins, int rb,
+                                  const void* codes2, int64_t nw2,
+                                  const void* aux, int64_t nwv, int clean,
+                                  int64_t b, int length, int k,
+                                  void* stream) {
+  if (b <= 0) return 0;
+  bulk_scatter_kernel<false><<<row_blocks(b), kRowReads, 0,
+                               (cudaStream_t)stream>>>(
+      (uint32_t*)out, nullptr, 0, 0, nbins, nbins / 4, rb,
+      make_batch(codes2, nw2, aux, nwv, clean, b, length), k);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__device__ __forceinline__ uint64_t mix64(uint64_t x) {
+  x ^= x >> 33;
+  x *= 0xff51afd7ed558ccdull;
+  x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ull;
+  return x ^ (x >> 33);
+}
+
+// n 4-byte stores as runs of 2^run_bits consecutive words, run r at a
+// pseudo-random start in the first half of out (words: a power of two); a
+// thread a store, consecutive threads on consecutive words of a run. Shifts
+// and masks only, so the stores, not the address arithmetic, bound it.
+__global__ void store_runs_kernel(uint32_t* __restrict__ out, int64_t words,
+                                  int64_t n, int run_bits) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const uint64_t half = (uint64_t)words / 2 - 1;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[(mix64((uint64_t)i >> run_bits) & half) +
+        (i & ((1 << run_bits) - 1))] = (uint32_t)i;
+}
+
+}  // namespace
+
+// The store rate by run length: out [words] uint32, words a power of two
+// of at least 2^(run_bits + 1).
+extern "C" int commet_store_runs(void* out, int64_t words, int64_t n,
+                                 int run_bits, void* stream) {
+  if (n <= 0 || run_bits < 0 || words < (int64_t)2 << run_bits ||
+      (words & (words - 1)))
+    return (int)cudaErrorInvalidValue;
+  store_runs_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)out, words, n, run_bits);
   return (int)cudaGetLastError();
 }

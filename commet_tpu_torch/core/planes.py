@@ -276,14 +276,39 @@ build_planes_range.launches = 0
 # shared memory one apply block loads (two blocks an SM; measured faster on
 # an H100 than 128 KiB slices, PERF.md)
 BULK_SLICE_BITS = 19
+# plane bits one region (a coarse bin of level 1) holds: 2^22 words, so 64
+# regions a plane and 256 slices a region at k = 33 (csrc/planes.cu)
+BULK_REGION_BITS = 27
+# reads of one histogram or level-1 block, entries of one level-2 tile (the
+# kernels' kRowReads and kTile2)
+BULK_BLOCK_READS = 256
+BULK_TILE = 16384
 
 
 def bulk_layout(k: int):
-    """(sb, slice_words, nslices) of the bulk build at k: a key's bin in its
-    plane is key >> sb, its entry key & (2^sb - 1); each of the four planes
-    is nslices slices of slice_words words (one slice below k = 19)."""
+    """(sb, slice_words, nslices, rb) of the bulk build at k: a key's fine
+    bin in its plane is key >> sb, its entry key & (2^sb - 1); its region
+    (level 1's coarse bin) key >> rb, its region entry key & (2^rb - 1).
+    Each of the four planes is nslices slices of slice_words words (one
+    slice below k = 19) and nslices >> (rb - sb) regions of 2^(rb - sb)
+    slices (one region below k = 27)."""
     sb = max(5, min(k, BULK_SLICE_BITS))
-    return sb, 1 << (sb - 5), plane_words(k) >> (sb - 5)
+    rb = max(sb, min(k, BULK_REGION_BITS))
+    return sb, 1 << (sb - 5), plane_words(k) >> (sb - 5), rb
+
+
+def bulk_bins(k: int):
+    """(nbins, spr): level 1's coarse bins (4 planes x their regions) and
+    the slices of a region. Fine bin = coarse bin * spr + slice."""
+    sb, _sw, ns, rb = bulk_layout(k)
+    spr = 1 << (rb - sb)
+    return 4 * ns // spr, spr
+
+
+def bulk_blocks(codes2) -> int:
+    """Histogram (and level-1) blocks of a packed batch: block j takes rows
+    [j * BULK_BLOCK_READS, (j + 1) * BULK_BLOCK_READS)."""
+    return -(-codes2.shape[0] // BULK_BLOCK_READS)
 
 
 def bulk_slots(codes2, length: int, k: int) -> int:
@@ -293,25 +318,36 @@ def bulk_slots(codes2, length: int, k: int) -> int:
 
 
 def bulk_workspace_bytes(k: int, chunk: int, batch_slots: int,
-                         batch_bytes: int) -> int:
-    """Device bytes one bulk chunk holds beside the planes: its bins (4 B a
-    plane a window slot, for the batches up to and including the one that
-    reaches ``chunk`` slots), those kept batches (``batch_bytes`` each) and
-    its counts, offsets and cursors."""
+                         batch_bytes: int, batch_rows: int) -> int:
+    """Device bytes one bulk chunk holds beside the planes: for the batches
+    up to and including the one that reaches ``chunk`` slots, their upload
+    (``batch_bytes`` each), their entries in both levels' buffers (level
+    1's and level 2's, 4 B a plane a window slot each) and their histogram
+    tables with the scan's copies (20 B a coarse bin a block of
+    BULK_BLOCK_READS of the ``batch_rows`` reads); and the fine counts,
+    offsets and cursors and the level-2 tile scan."""
     n_batches = chunk // max(1, batch_slots) + 1
-    return (n_batches * (16 * batch_slots + batch_bytes)
-            + 3 * 8 * (4 * bulk_layout(k)[2] + 1))
+    nbins = bulk_bins(k)[0]
+    blocks = -(-batch_rows // BULK_BLOCK_READS)
+    return (n_batches * (32 * batch_slots + batch_bytes + 20 * nbins * blocks)
+            + 3 * 8 * (4 * bulk_layout(k)[2] + 1) + 4 * 8 * (nbins + 1))
 
 
-def _plane_bins(codes2, valid_or_lengths, clean: bool, length: int, k: int):
-    """(bin, entry) int64 of each complete forward window's four plane bits,
-    plane by plane."""
-    sb, _sw, ns = bulk_layout(k)
-    a, b = keys.index_keys(_unpack(codes2, valid_or_lengths, clean, length),
-                           k)
-    pk = four_plane_keys(a, b)
-    return (torch.cat([p * ns + (key >> sb) for p, key in enumerate(pk)]),
-            torch.cat([key & ((1 << sb) - 1) for key in pk]))
+def _coarse_entries(codes2, valid_or_lengths, clean: bool, length: int,
+                    k: int):
+    """(block, coarse bin, region entry) int64 of each complete forward
+    window's four plane bits, plane by plane, windows in (row, position)
+    order."""
+    _sb, _sw, _ns, rb = bulk_layout(k)
+    nreg = bulk_bins(k)[0] // 4
+    wk = keys.window_keys(_unpack(codes2, valid_or_lengths, clean, length),
+                          k, "fwd")
+    ok = wk["ok"]
+    block = torch.nonzero(ok)[:, 0] // BULK_BLOCK_READS
+    pk = four_plane_keys(wk["fa"][ok], wk["fb"][ok])
+    return (block.repeat(4),
+            torch.cat([p * nreg + (key >> rb) for p, key in enumerate(pk)]),
+            torch.cat([key & ((1 << rb) - 1) for key in pk]))
 
 
 def _check_bulk_vector(fn: str, name: str, x: torch.Tensor, n: int,
@@ -325,86 +361,114 @@ def _check_bulk_vector(fn: str, name: str, x: torch.Tensor, n: int,
 
 def bulk_histogram_plain(codes2, valid_or_lengths, clean: bool, length: int,
                          k: int) -> torch.Tensor:
-    """[4 * nslices] int64 counts of the batch's entries per bin, in plain
-    PyTorch (a bincount)."""
-    bins, _entries = _plane_bins(codes2, valid_or_lengths, clean, length, k)
-    return torch.bincount(bins, minlength=4 * bulk_layout(k)[2])
+    """bulk_histogram in plain PyTorch: a bincount of (block, coarse bin)."""
+    block, cbin, _entry = _coarse_entries(codes2, valid_or_lengths, clean,
+                                          length, k)
+    nbins, j = bulk_bins(k)[0], bulk_blocks(codes2)
+    return torch.bincount(block * nbins + cbin, minlength=j * nbins).view(
+        j, nbins).to(torch.int32)
 
 
-def bulk_histogram(counts: torch.Tensor, codes2, valid_or_lengths,
-                   clean: bool, length: int, k: int) -> torch.Tensor:
-    """Add the packed batch's entries per bin (bulk_layout) to ``counts``
-    ([4 * nslices] int64), in place; returns ``counts``. The first pass of
-    the bulk build: a CUDA tensor runs csrc/planes.cu (commet_bulk_hist,
-    counted in ``bulk_histogram.launches``), a CPU tensor runs
-    bulk_histogram_plain."""
+def bulk_histogram(codes2, valid_or_lengths, clean: bool, length: int,
+                   k: int) -> torch.Tensor:
+    """The packed batch's entries per block of BULK_BLOCK_READS reads and
+    coarse bin (bulk_bins), all four planes: [bulk_blocks(codes2), nbins]
+    int32. The first pass of the bulk build: a CUDA tensor runs
+    csrc/planes.cu (commet_bulk_hist, counted in
+    ``bulk_histogram.launches``), a CPU tensor runs bulk_histogram_plain."""
     fn = "bulk_histogram"
     _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
-    _sb, _sw, ns = bulk_layout(k)
-    _check_bulk_vector(fn, "counts", counts, 4 * ns, codes2.device)
     if codes2.device.type == "cpu":
-        counts += bulk_histogram_plain(codes2, valid_or_lengths, clean,
-                                       length, k)
-        return counts
+        return bulk_histogram_plain(codes2, valid_or_lengths, clean, length,
+                                    k)
     if codes2.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    nbins = bulk_bins(k)[0]
+    table = torch.empty((bulk_blocks(codes2), nbins), dtype=torch.int32,
+                        device=codes2.device)
     if codes2.shape[0] == 0:
-        return counts
+        return table
     with torch.cuda.device(codes2.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("commet_bulk_hist", _ptr(counts), ctypes.c_int64(ns),
-                ctypes.c_int(bulk_layout(k)[0]),
+        _launch("commet_bulk_hist", _ptr(table), ctypes.c_int(nbins),
+                ctypes.c_int(bulk_layout(k)[3]),
                 *_batch_args(codes2, valid_or_lengths, clean, length),
                 ctypes.c_int(k), ctypes.c_void_p(stream))
     bulk_histogram.launches += 1
-    return counts
+    return table
 
 
 bulk_histogram.launches = 0
 
 
-def bulk_scatter_plain(bins: torch.Tensor, cursor: torch.Tensor, codes2,
-                       valid_or_lengths, clean: bool, length: int,
+def bulk_starts(tables: torch.Tensor):
+    """The scan of a chunk's histogram tables (``tables`` [R, nbins] int32,
+    the batches' bulk_histogram stacked in order): (starts [nbins, R]
+    int64, the index in level 1's buffer of each (coarse bin, block) run:
+    bin by bin, within a bin batch by batch and block by block; cstart
+    [nbins + 1] int64, each bin's first index and the total)."""
+    flat = tables.t().contiguous().view(-1)
+    starts = torch.cumsum(flat, 0, dtype=torch.int64).sub_(flat)
+    cstart = torch.zeros(tables.shape[1] + 1, dtype=torch.int64,
+                         device=tables.device)
+    cstart[1:] = torch.cumsum(tables.sum(0, dtype=torch.int64), 0)
+    return starts.view(tables.shape[1], tables.shape[0]), cstart
+
+
+def bulk_scatter_plain(mid: torch.Tensor, starts: torch.Tensor, row0: int,
+                       codes2, valid_or_lengths, clean: bool, length: int,
                        k: int) -> None:
-    """bulk_scatter in plain PyTorch: a bin's entries in window order, plane
-    by plane (the kernel's order within a bin is the order its atomics
-    land in)."""
-    b, e = _plane_bins(codes2, valid_or_lengths, clean, length, k)
-    order = torch.argsort(b, stable=True)
-    b, e = b[order], e[order]
-    n = torch.bincount(b, minlength=cursor.numel())
-    rank = torch.arange(b.numel(), device=b.device) - (
-        torch.cumsum(n, 0) - n)[b]
-    bins[cursor[b] + rank] = e.to(torch.int32)
-    cursor += n
+    """bulk_scatter in plain PyTorch: a (coarse bin, block) run's entries in
+    window order, plane by plane (the kernel's order within a run is the
+    order its shared-memory atomics land in)."""
+    block, cbin, entry = _coarse_entries(codes2, valid_or_lengths, clean,
+                                         length, k)
+    j = bulk_blocks(codes2)
+    run = cbin * j + block
+    order = torch.argsort(run, stable=True)
+    run, entry = run[order], entry[order]
+    n = torch.bincount(run, minlength=starts.shape[0] * j)
+    rank = torch.arange(run.numel(), device=run.device) - (
+        torch.cumsum(n, 0) - n)[run]
+    mid[starts[run // j, row0 + run % j] + rank] = entry.to(torch.int32)
 
 
-def bulk_scatter(bins: torch.Tensor, cursor: torch.Tensor, codes2,
-                 valid_or_lengths, clean: bool, length: int,
+def bulk_scatter(mid: torch.Tensor, starts: torch.Tensor, row0: int,
+                 codes2, valid_or_lengths, clean: bool, length: int,
                  k: int) -> None:
-    """Append the packed batch's entries to their bins, in place: an entry
-    of bin i goes to ``bins`` ([n] int32, holding every entry of the chunk)
-    at ``cursor[i]`` ([4 * nslices] int64, each bin's next free index),
-    which advances. The second pass of the bulk build: a CUDA tensor runs
-    csrc/planes.cu (commet_bulk_scatter, counted in
-    ``bulk_scatter.launches``), a CPU tensor runs bulk_scatter_plain."""
+    """Level 1 of the bulk build: write the packed batch's region entries
+    (key & (2^rb - 1), int32) into ``mid`` ([n] int32, every entry of the
+    chunk), the run of (coarse bin c, block j) from ``starts[c, row0 +
+    j]`` (bulk_starts of the chunk's tables, this batch's blocks at rows
+    row0 ..), in place. A CUDA tensor runs csrc/planes.cu
+    (commet_bulk_scatter, counted in ``bulk_scatter.launches``), a CPU
+    tensor runs bulk_scatter_plain."""
     fn = "bulk_scatter"
     _check_batch(fn, codes2, valid_or_lengths, clean, length, k)
-    sb, _sw, ns = bulk_layout(k)
-    _check_bulk_vector(fn, "cursor", cursor, 4 * ns, codes2.device)
-    _check_int32(fn, "bins", bins, 1, codes2.device)
-    if codes2.device.type == "cpu":
-        bulk_scatter_plain(bins, cursor, codes2, valid_or_lengths, clean,
-                           length, k)
+    nbins = bulk_bins(k)[0]
+    device = codes2.device
+    _check_int32(fn, "mid", mid, 1, device)
+    if starts.device != device or starts.dtype != torch.int64 \
+            or starts.dim() != 2 or starts.shape[0] != nbins \
+            or not starts.is_contiguous() or row0 < 0 \
+            or row0 + bulk_blocks(codes2) > starts.shape[1]:
+        raise ValueError(f"{fn}: starts must be a contiguous [{nbins}, R] "
+                         f"int64 tensor on {device} with rows {row0} .. "
+                         f"{row0 + bulk_blocks(codes2)}, got {starts.dtype} "
+                         f"{tuple(starts.shape)} on {starts.device}")
+    if device.type == "cpu":
+        bulk_scatter_plain(mid, starts, row0, codes2, valid_or_lengths,
+                           clean, length, k)
         return
-    if codes2.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {codes2.device}")
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {device}")
     if codes2.shape[0] == 0:
         return
-    with torch.cuda.device(codes2.device):
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("commet_bulk_scatter", _ptr(cursor), _ptr(bins),
-                ctypes.c_int64(ns), ctypes.c_int(sb),
+        _launch("commet_bulk_scatter", _ptr(mid), _ptr(starts),
+                ctypes.c_int64(starts.shape[1]), ctypes.c_int64(row0),
+                ctypes.c_int(nbins), ctypes.c_int(bulk_layout(k)[3]),
                 *_batch_args(codes2, valid_or_lengths, clean, length),
                 ctypes.c_int(k), ctypes.c_void_p(stream))
     bulk_scatter.launches += 1
@@ -413,12 +477,126 @@ def bulk_scatter(bins: torch.Tensor, cursor: torch.Tensor, codes2,
 bulk_scatter.launches = 0
 
 
+def _fine_entries(mid: torch.Tensor, cstart: torch.Tensor, k: int):
+    """(fine bin, slice entry) int64 of level 1's entries mid[0 :
+    cstart[-1]], coarse bin c's at [cstart[c], cstart[c + 1])."""
+    sb = bulk_layout(k)[0]
+    nbins, spr = bulk_bins(k)
+    cbin = torch.repeat_interleave(
+        torch.arange(nbins, device=mid.device), cstart[1:] - cstart[:-1])
+    v = mid[:cbin.numel()].to(torch.int64)
+    return cbin * spr + (v >> sb), v & ((1 << sb) - 1)
+
+
+def _check_level2(fn: str, mid: torch.Tensor, cstart: torch.Tensor,
+                  k: int) -> None:
+    _check_int32(fn, "mid", mid, 1, mid.device)
+    _check_bulk_vector(fn, "cstart", cstart, bulk_bins(k)[0] + 1,
+                       mid.device)
+
+
+def _refine_launch(slot: torch.Tensor, bins, mid: torch.Tensor,
+                   cstart: torch.Tensor, k: int, place: bool) -> None:
+    """commet_bulk_refine over tiles of up to BULK_TILE entries of one
+    coarse bin: the tiles' scan is made here, on the card, and the grid is
+    sized by mid (at least as many entries as cstart[-1]) without reading
+    it back."""
+    nbins, spr = bulk_bins(k)
+    n = cstart[1:] - cstart[:-1]
+    tprefix = torch.zeros(nbins + 1, dtype=torch.int64, device=mid.device)
+    tprefix[1:] = torch.cumsum((n + BULK_TILE - 1) // BULK_TILE, 0)
+    ntiles = -(-mid.numel() // BULK_TILE) + nbins
+    with torch.cuda.device(mid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("commet_bulk_refine", _ptr(mid), _ptr(cstart), _ptr(tprefix),
+                ctypes.c_int64(ntiles), ctypes.c_int(nbins),
+                ctypes.c_int(spr), ctypes.c_int(bulk_layout(k)[0]),
+                _ptr(slot), ctypes.c_void_p(0 if bins is None else
+                                            bins.data_ptr()),
+                ctypes.c_int(int(place)), ctypes.c_void_p(stream))
+
+
+def bulk_slice_counts_plain(mid: torch.Tensor, cstart: torch.Tensor,
+                            k: int) -> torch.Tensor:
+    """[4 * nslices] int64 entries per fine bin, in plain PyTorch."""
+    fine, _entry = _fine_entries(mid, cstart, k)
+    return torch.bincount(fine, minlength=4 * bulk_layout(k)[2])
+
+
+def bulk_slice_counts(counts: torch.Tensor, mid: torch.Tensor,
+                      cstart: torch.Tensor, k: int) -> torch.Tensor:
+    """Add the entries per fine bin (bulk_layout) of level 1's buffer
+    ``mid`` (coarse bin c's entries at [cstart[c], cstart[c + 1]),
+    ``cstart`` [nbins + 1] int64 from bulk_starts) to ``counts`` ([4 *
+    nslices] int64), in place; returns ``counts``. Level 2's first launch:
+    a CUDA tensor runs csrc/planes.cu (commet_bulk_refine counting, counted
+    in ``bulk_slice_counts.launches``), a CPU tensor runs
+    bulk_slice_counts_plain."""
+    fn = "bulk_slice_counts"
+    _check_level2(fn, mid, cstart, k)
+    _check_bulk_vector(fn, "counts", counts, 4 * bulk_layout(k)[2],
+                       mid.device)
+    if mid.device.type == "cpu":
+        counts += bulk_slice_counts_plain(mid, cstart, k)
+        return counts
+    if mid.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {mid.device}")
+    _refine_launch(counts, None, mid, cstart, k, False)
+    bulk_slice_counts.launches += 1
+    return counts
+
+
+bulk_slice_counts.launches = 0
+
+
+def bulk_refine_plain(bins: torch.Tensor, cursor: torch.Tensor,
+                      mid: torch.Tensor, cstart: torch.Tensor,
+                      k: int) -> None:
+    """bulk_refine in plain PyTorch: a fine bin's entries in level 1's
+    order (the kernel's order within a bin is the order its atomics land
+    in)."""
+    fine, entry = _fine_entries(mid, cstart, k)
+    order = torch.argsort(fine, stable=True)
+    fine, entry = fine[order], entry[order]
+    n = torch.bincount(fine, minlength=cursor.numel())
+    rank = torch.arange(fine.numel(), device=fine.device) - (
+        torch.cumsum(n, 0) - n)[fine]
+    bins[cursor[fine] + rank] = entry.to(torch.int32)
+    cursor += n
+
+
+def bulk_refine(bins: torch.Tensor, cursor: torch.Tensor, mid: torch.Tensor,
+                cstart: torch.Tensor, k: int) -> None:
+    """Level 2 of the bulk build: append level 1's entries (``mid``, coarse
+    bin c's at [cstart[c], cstart[c + 1])) to their fine bins, slice-relative
+    (key & (2^sb - 1)), in place: an entry of fine bin i goes to ``bins``
+    ([n] int32) at ``cursor[i]`` ([4 * nslices] int64, each bin's next free
+    index; the offsets bulk_slice_counts' scan gives), which advances. A
+    CUDA tensor runs csrc/planes.cu (commet_bulk_refine placing, counted in
+    ``bulk_refine.launches``), a CPU tensor runs bulk_refine_plain."""
+    fn = "bulk_refine"
+    _check_level2(fn, mid, cstart, k)
+    _check_bulk_vector(fn, "cursor", cursor, 4 * bulk_layout(k)[2],
+                       mid.device)
+    _check_int32(fn, "bins", bins, 1, mid.device)
+    if mid.device.type == "cpu":
+        bulk_refine_plain(bins, cursor, mid, cstart, k)
+        return
+    if mid.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {mid.device}")
+    _refine_launch(cursor, bins, mid, cstart, k, True)
+    bulk_refine.launches += 1
+
+
+bulk_refine.launches = 0
+
+
 def bulk_apply_plain(planes: torch.Tensor, bins: torch.Tensor,
                      offsets: torch.Tensor, k: int) -> torch.Tensor:
     """bulk_apply in plain PyTorch: every entry's word and bit in the plane
     set, set through one accumulating index_put_ of the distinct new
     bits."""
-    _sb, sw, ns = bulk_layout(k)
+    _sb, sw, ns, _rb = bulk_layout(k)
     n = offsets[1:] - offsets[:-1]
     b = torch.repeat_interleave(torch.arange(4 * ns, device=bins.device), n)
     start = int(offsets[0])
@@ -439,7 +617,7 @@ def bulk_apply(planes: torch.Tensor, bins: torch.Tensor,
     fn = "bulk_apply"
     _check_planes(fn, planes, k, bins.device)
     _check_int32(fn, "bins", bins, 1, bins.device)
-    _sb, sw, ns = bulk_layout(k)
+    _sb, sw, ns, _rb = bulk_layout(k)
     _check_bulk_vector(fn, "offsets", offsets, 4 * ns + 1, bins.device)
     if bins.device.type == "cpu":
         return bulk_apply_plain(planes, bins, offsets, k)
@@ -488,12 +666,14 @@ def bulk_build_planes_plain(planes: torch.Tensor, batches,
 class BulkChunk:
     """One chunk of the bulk build (K9) of the four-plane set ``planes``.
     ``add`` takes a packed batch: on the card bulk_histogram counts its
-    entries at once, and the batch is kept until ``flush``, which writes
-    every kept batch's windows into the planes (bulk_scatter of each, then
-    one bulk_apply; a CPU tensor takes bulk_build_planes_plain) and empties
-    the chunk. ``slots`` counts the kept batches' window slots
-    (bulk_slots). Counterpart of the accumulate-and-flush loop of
-    commet_tpu's Engine._build_planes_bulk."""
+    entries per block and coarse bin at once, and the batch is kept until
+    ``flush``, which writes every kept batch's windows into the planes
+    (the tables' scan, bulk_scatter of each batch, bulk_slice_counts and
+    bulk_refine of the chunk, one bulk_apply; a CPU tensor takes
+    bulk_build_planes_plain) and empties the chunk. ``slots`` counts the
+    kept batches' window slots (bulk_slots); after a flush on the card
+    ``counts`` holds that chunk's entries per fine bin. Counterpart of the
+    accumulate-and-flush loop of commet_tpu's Engine._build_planes_bulk."""
 
     def __init__(self, planes: torch.Tensor, k: int):
         _check_k("BulkChunk", k)
@@ -501,6 +681,7 @@ class BulkChunk:
         self.planes = planes
         self.k = k
         self.batches: list = []
+        self.tables: list = []
         self.slots = 0
         self.counts: Optional[torch.Tensor] = None
 
@@ -511,12 +692,8 @@ class BulkChunk:
             raise ValueError(f"BulkChunk.add: batch on {codes2.device}, "
                              f"planes on {self.planes.device}")
         if codes2.device.type == "cuda":
-            if self.counts is None:
-                self.counts = torch.zeros(4 * bulk_layout(self.k)[2],
-                                          dtype=torch.int64,
-                                          device=codes2.device)
-            bulk_histogram(self.counts, codes2, valid_or_lengths, clean,
-                           length, self.k)
+            self.tables.append(bulk_histogram(codes2, valid_or_lengths, clean,
+                                              length, self.k))
         self.batches.append((codes2, valid_or_lengths, clean, length))
         self.slots += bulk_slots(codes2, length, self.k)
 
@@ -524,17 +701,36 @@ class BulkChunk:
         if self.batches and self.planes.device.type == "cpu":
             bulk_build_planes_plain(self.planes, self.batches, self.k)
         elif self.batches:
-            offsets = torch.zeros(self.counts.numel() + 1, dtype=torch.int64,
-                                  device=self.planes.device)
-            offsets[1:] = torch.cumsum(self.counts, 0)
-            cursor = offsets[:-1].clone()
-            bins = torch.empty(4 * self.slots, dtype=torch.int32,
-                               device=self.planes.device)
-            for batch in self.batches:
-                bulk_scatter(bins, cursor, *batch, self.k)
-            bulk_apply(self.planes, bins, offsets, self.k)
-        self.batches, self.slots, self.counts = [], 0, None
+            self.counts = _bulk_flush(self.planes, self.batches,
+                                      torch.cat(self.tables), 4 * self.slots,
+                                      self.k)
+        self.batches, self.tables, self.slots = [], [], 0
         return self.planes
+
+
+def _bulk_flush(planes: torch.Tensor, batches, tables: torch.Tensor,
+                size: int, k: int) -> torch.Tensor:
+    """The bulk build of one chunk whose histogram ``tables`` are given:
+    level 1 into a buffer of ``size`` entries, level 2 into a second one,
+    the apply; returns the entries per fine bin."""
+    starts, cstart = bulk_starts(tables)
+    mid = torch.empty(size, dtype=torch.int32, device=planes.device)
+    row0 = 0
+    for batch in batches:
+        bulk_scatter(mid, starts, row0, *batch, k)
+        row0 += bulk_blocks(batch[0])
+    del starts
+    counts = bulk_slice_counts(
+        torch.zeros(4 * bulk_layout(k)[2], dtype=torch.int64,
+                    device=planes.device), mid, cstart, k)
+    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                          device=planes.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    bins = torch.empty_like(mid)
+    bulk_refine(bins, offsets[:-1].clone(), mid, cstart, k)
+    del mid
+    bulk_apply(planes, bins, offsets, k)
+    return counts
 
 
 def bulk_build_planes(planes: torch.Tensor, batches, k: int) -> torch.Tensor:
@@ -542,7 +738,8 @@ def bulk_build_planes(planes: torch.Tensor, batches, k: int) -> torch.Tensor:
     packed ``batches`` (one chunk: (codes2, valid_or_lengths, clean,
     length) each), in place; returns ``planes``. The bulk build of
     commet_tpu (K9): on the card csrc/planes.cu's bulk_histogram,
-    bulk_scatter and bulk_apply, on the CPU bulk_build_planes_plain."""
+    bulk_scatter, bulk_slice_counts, bulk_refine and bulk_apply, on the CPU
+    bulk_build_planes_plain."""
     chunk = BulkChunk(planes, k)
     for batch in batches:
         chunk.add(*batch)

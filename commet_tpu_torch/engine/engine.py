@@ -555,7 +555,7 @@ class Engine:
         rows = row_batch_size(self.build_batch, max(1, lmax - self.k + 1))
         return planes.bulk_workspace_bytes(
             self.k, chunk, rows * (lpad - self.k + 1),
-            rows * 4 * (lpad // 16 + lpad // 32 + 1))
+            rows * 4 * (lpad // 16 + lpad // 32 + 1), rows)
 
     def build_planes(self, enc: EncodedSet, idx: np.ndarray,
                      chunk: Optional[int] = None):

@@ -1,6 +1,7 @@
 """The port's bulk plane build (K9: core/planes.py BulkChunk,
-bulk_build_planes and its plain version, the plain versions of the three
-kernel wrappers bulk_histogram / bulk_scatter / bulk_apply) and its switches
+bulk_build_planes and its plain version, the plain versions of the five
+kernel wrappers bulk_histogram / bulk_scatter / bulk_slice_counts /
+bulk_refine / bulk_apply) and its switches
 in engine/engine.py (COMMET_TPU_BULK_BUILD, COMMET_TPU_BULK_CHUNK, the plane
 cohorts' smaller chunk) against commet_tpu's bulk build
 (kernels.bulk_plane_sorted, bulk_scatter_set, bulk_or_plane;
@@ -35,30 +36,43 @@ def _batch(codes, clean=False):
     return c2, aux, clean, codes.shape[1]
 
 
-def _wrappers_build(pl, batches, k):
-    """The chunk through the kernel wrappers on CPU tensors (their plain
-    versions): histograms, the scan, scatters, one apply; checks that the
-    cursors end at the next bin's offset."""
-    _sb, _sw, ns = planes.bulk_layout(k)
-    counts = torch.zeros(4 * ns, dtype=torch.int64)
+def _two_level(batches, k):
+    """The chunk's (bins, offsets) through the kernel wrappers on CPU
+    tensors (their plain versions): histogram tables, their scan, level 1,
+    level 2's counts, their scan and its placing; checks that the cursors
+    end at the next bin's offset."""
+    ns, nbins = planes.bulk_layout(k)[2], planes.bulk_bins(k)[0]
+    tables = torch.cat([torch.zeros((0, nbins), dtype=torch.int32)]
+                       + [planes.bulk_histogram(*bt, k) for bt in batches])
+    starts, cstart = planes.bulk_starts(tables)
+    mid = torch.empty(4 * sum(planes.bulk_slots(bt[0], bt[3], k)
+                              for bt in batches), dtype=torch.int32)
+    row0 = 0
     for bt in batches:
-        planes.bulk_histogram(counts, *bt, k)
+        planes.bulk_scatter(mid, starts, row0, *bt, k)
+        row0 += planes.bulk_blocks(bt[0])
+    counts = planes.bulk_slice_counts(torch.zeros(4 * ns, dtype=torch.int64),
+                                      mid, cstart, k)
     offsets = torch.zeros(4 * ns + 1, dtype=torch.int64)
     offsets[1:] = torch.cumsum(counts, 0)
     cursor = offsets[:-1].clone()
-    bins = torch.empty(4 * sum(planes.bulk_slots(bt[0], bt[3], k)
-                               for bt in batches), dtype=torch.int32)
-    for bt in batches:
-        planes.bulk_scatter(bins, cursor, *bt, k)
+    bins = torch.empty_like(mid)
+    planes.bulk_refine(bins, cursor, mid, cstart, k)
     assert torch.equal(cursor, offsets[1:])
-    return planes.bulk_apply(pl, bins, offsets, k)
+    return bins, offsets
+
+
+def _wrappers_build(pl, batches, k):
+    """The chunk through the kernel wrappers' plain versions (_two_level),
+    then one apply."""
+    return planes.bulk_apply(pl, *_two_level(batches, k), k)
 
 
 @pytest.mark.parametrize("k", [15, 32, 33])
 def test_bulk_build_matches_jax_bulk(k):
     """Two flushes of the same reads (3% invalid bases) as
     tests/test_kernels.py runs commet_tpu's bulk build: the port's
-    bulk_build_planes (its plain version on the CPU), the three wrappers'
+    bulk_build_planes (its plain version on the CPU), the five wrappers'
     plain versions in turn, and the per-batch build give commet_tpu's
     planes word for word."""
     rng = np.random.default_rng(11)
@@ -277,11 +291,8 @@ def test_bulk_edges():
         pl = planes.alloc_planes(k, "cpu")
         planes.bulk_build_planes(pl, empty, k)
         assert not pl.any()
-        _sb, _sw, ns = planes.bulk_layout(k)
-        counts = torch.zeros(4 * ns, dtype=torch.int64)
         for bt in empty:
-            planes.bulk_histogram(counts, *bt, k)
-        assert not counts.any()
+            assert not planes.bulk_histogram(*bt, k).any()
         assert not _wrappers_build(pl, empty, k).any()
         full = [_batch(encode(random_seqs(rng, n, 1, 4 * k + 9,
                                           n_frac=0.02)))
@@ -297,10 +308,10 @@ def test_bulk_edges():
         _wrappers_build(wrapped, full[:2], k)
         _wrappers_build(wrapped, full[2:], k)
         assert torch.equal(wrapped, want)
-    assert planes.bulk_layout(4) == (5, 1, 1)
-    assert planes.bulk_layout(18) == (18, 1 << 13, 1)
-    assert planes.bulk_layout(33) == (19, 1 << 14, 1 << 14)
-    assert planes.bulk_layout(36) == (19, 1 << 14, 1 << 17)
+    assert planes.bulk_layout(4) == (5, 1, 1, 5)
+    assert planes.bulk_layout(18) == (18, 1 << 13, 1, 18)
+    assert planes.bulk_layout(33) == (19, 1 << 14, 1 << 14, 27)
+    assert planes.bulk_layout(36) == (19, 1 << 14, 1 << 17, 27)
 
 
 def test_bulk_memory_checks(tmp_path, monkeypatch):
@@ -320,8 +331,8 @@ def test_bulk_memory_checks(tmp_path, monkeypatch):
     work = eng._bulk_bytes(enc, elig, chunk)
     lpad, rows = 96, 65536  # 70 bp reads; one batch holds them all
     assert work == planes.bulk_workspace_bytes(
-        k, chunk, rows * (lpad - k + 1), rows * 4 * (6 + 3 + 1))
-    assert work > 16 * chunk
+        k, chunk, rows * (lpad - k + 1), rows * 4 * (6 + 3 + 1), rows)
+    assert work > 32 * chunk  # both levels' entry buffers
     free = {"bytes": planes.plane_bytes(k) + work - 1}
     monkeypatch.setattr(eng, "_free_bytes", lambda dev=None: free["bytes"])
     with pytest.raises(MemoryError, match="COMMET_TPU_BULK_CHUNK") as err:

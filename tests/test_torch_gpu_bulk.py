@@ -1,11 +1,12 @@
 """Card-only tests of the bulk plane build (K9): the kernels of
-csrc/planes.cu behind bulk_histogram, bulk_scatter and bulk_apply against
-their plain PyTorch versions on the card, BulkChunk against the per-batch
+csrc/planes.cu behind bulk_histogram, bulk_scatter (level 1),
+bulk_slice_counts and bulk_refine (level 2) and bulk_apply against their
+plain PyTorch versions on the card, BulkChunk against the per-batch
 build and bulk_build_planes_plain, and the engine's bulk route
 (COMMET_TPU_BULK_BUILD=force, small COMMET_TPU_BULK_CHUNK) against its
 per-batch route. Each skips without a CUDA card; exact equality throughout
 (a bin's entries are compared as a set: the kernel appends them in the
-order its atomics land). Imports no JAX:
+order its shared-memory atomics land). Imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu_bulk.py
@@ -30,7 +31,9 @@ def cuda_device():
 
 def _batches(rng, k, device):
     """Dirty and clean batches of reads shorter than k, 100 and 300 bp
-    long, with Ns, on the card: (codes2, aux, clean, length) each."""
+    long, with Ns, and a clean batch of 300 bp reads with 2% A (plane D's
+    keys, a | b, crowd into its last region and slice: a coarse bin of
+    many level-2 tiles), on the card: (codes2, aux, clean, length) each."""
     out = []
     for n_frac in (0.01, 0.0, 0.02):
         seqs = random_seqs(rng, 700, 1, 300, n_frac=n_frac)
@@ -38,6 +41,11 @@ def _batches(rng, k, device):
         clean = n_frac == 0.0
         c2, aux = (x.to(device) for x in _pack(codes, clean))
         out.append((c2, aux, clean, 320))
+    codes = np.full((700, 320), 4, dtype=np.uint8)
+    codes[:, :300] = rng.choice(4, size=(700, 300), p=[0.02, 0.33, 0.33,
+                                                       0.32])
+    c2, aux = (x.to(device) for x in _pack(codes, True))
+    out.append((c2, aux, True, 320))
     return out
 
 
@@ -48,37 +56,53 @@ def _sorted_bins(bins, offsets):
     return torch.sort(b * (1 << 32) + bins[:b.numel()].to(torch.int64)).values
 
 
+WRAPPERS = ("bulk_histogram", "bulk_scatter", "bulk_slice_counts",
+            "bulk_refine", "bulk_apply")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [4, 15, 21, 31, 33])
 def test_bulk_kernels_match_plain_on_card(cuda_device, k):
-    """Per batch the histogram kernel gives the plain counts; the scatter
-    kernel fills each bin with the plain version's entries and ends every
-    cursor at the next bin's offset; the apply kernel sets the plain
-    version's bits on a set already holding bits; a BulkChunk over the
-    three batches equals the per-batch kernel build and
+    """Per batch the histogram kernel gives the plain table; level 1's
+    kernel fills each coarse bin of its buffer with the plain version's
+    entries; level 2's counting kernel gives the plain fine counts and its
+    placing kernel fills each fine bin with the plain version's entries,
+    every cursor ending at the next bin's offset; the apply kernel sets the
+    plain version's bits on a set already holding bits; a BulkChunk over
+    the batches equals the per-batch kernel build and
     bulk_build_planes_plain. Each wrapper counts its launches."""
     rng = np.random.default_rng(80 + k)
     batches = _batches(rng, k, cuda_device)
-    _sb, _sw, ns = planes.bulk_layout(k)
-    counts = torch.zeros(4 * ns, dtype=torch.int64, device=cuda_device)
-    launched = [fn.launches for fn in (planes.bulk_histogram,
-                                       planes.bulk_scatter,
-                                       planes.bulk_apply)]
+    _sb, _sw, ns, _rb = planes.bulk_layout(k)
+    launched = [getattr(planes, name).launches for name in WRAPPERS]
+    tables = []
     for bt in batches:
-        before = counts.clone()
-        planes.bulk_histogram(counts, *bt, k)
-        assert torch.equal(counts - before, planes.bulk_histogram_plain(*bt,
-                                                                        k))
+        tables.append(planes.bulk_histogram(*bt, k))
+        assert torch.equal(tables[-1], planes.bulk_histogram_plain(*bt, k))
+    starts, cstart = planes.bulk_starts(torch.cat(tables))
+    slots = sum(planes.bulk_slots(bt[0], bt[3], k) for bt in batches)
+    got_mid = torch.full((4 * slots,), -1, dtype=torch.int32,
+                         device=cuda_device)
+    want_mid = got_mid.clone()
+    row0 = 0
+    for bt in batches:
+        planes.bulk_scatter(got_mid, starts, row0, *bt, k)
+        planes.bulk_scatter_plain(want_mid, starts, row0, *bt, k)
+        row0 += planes.bulk_blocks(bt[0])
+    assert torch.equal(_sorted_bins(got_mid, cstart),
+                       _sorted_bins(want_mid, cstart))
+    counts = planes.bulk_slice_counts(
+        torch.zeros(4 * ns, dtype=torch.int64, device=cuda_device), got_mid,
+        cstart, k)
+    assert torch.equal(counts, planes.bulk_slice_counts_plain(got_mid,
+                                                              cstart, k))
     offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=cuda_device)
     offsets[1:] = torch.cumsum(counts, 0)
-    slots = sum(planes.bulk_slots(bt[0], bt[3], k) for bt in batches)
-    got_bins = torch.full((4 * slots,), -1, dtype=torch.int32,
-                          device=cuda_device)
-    want_bins = got_bins.clone()
+    got_bins, want_bins = torch.full_like(got_mid, -1), torch.full_like(
+        got_mid, -1)
     got_cur, want_cur = offsets[:-1].clone(), offsets[:-1].clone()
-    for bt in batches:
-        planes.bulk_scatter(got_bins, got_cur, *bt, k)
-        planes.bulk_scatter_plain(want_bins, want_cur, *bt, k)
+    planes.bulk_refine(got_bins, got_cur, got_mid, cstart, k)
+    planes.bulk_refine_plain(want_bins, want_cur, got_mid, cstart, k)
     torch.cuda.synchronize()
     assert torch.equal(got_cur, offsets[1:])
     assert torch.equal(want_cur, offsets[1:])
@@ -99,9 +123,8 @@ def test_bulk_kernels_match_plain_on_card(cuda_device, k):
         planes.alloc_planes(k, cuda_device), batches, k)
     torch.cuda.synchronize()
     assert torch.equal(bulk, per_batch) and torch.equal(plain, per_batch)
-    assert [fn.launches - n for fn, n in zip(
-        (planes.bulk_histogram, planes.bulk_scatter, planes.bulk_apply),
-        launched)] == [6, 6, 2]
+    assert [getattr(planes, name).launches - n
+            for name, n in zip(WRAPPERS, launched)] == [8, 8, 2, 2, 2]
 
 
 @pytest.mark.gpu
@@ -139,27 +162,45 @@ def test_bulk_engine_cuda_matches_per_batch(tmp_path, monkeypatch,
 
 @pytest.mark.gpu
 def test_bulk_kernels_reject_bad_inputs(cuda_device):
-    """The wrappers raise on counts, cursors, offsets or bins of the wrong
-    type, size or device, before launching."""
+    """The wrappers raise on starts, cstart, counts, cursors, offsets or
+    buffers of the wrong type, size or device, or rows past the starts,
+    before launching."""
     k = 15
     rng = np.random.default_rng(91)
     c2, aux, clean, length = _batches(rng, k, cuda_device)[0]
-    _sb, _sw, ns = planes.bulk_layout(k)
+    _sb, _sw, ns, _rb = planes.bulk_layout(k)
+    nbins = planes.bulk_bins(k)[0]
+    rows = planes.bulk_blocks(c2)
+    starts = torch.zeros((nbins, rows), dtype=torch.int64, device=cuda_device)
+    cstart = torch.zeros(nbins + 1, dtype=torch.int64, device=cuda_device)
     good = torch.zeros(4 * ns, dtype=torch.int64, device=cuda_device)
-    bins = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    mid = torch.zeros(16, dtype=torch.int32, device=cuda_device)
     pl = planes.alloc_planes(k, cuda_device)
     offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=cuda_device)
-    launched = planes.bulk_histogram.launches
+    launched = [getattr(planes, name).launches for name in WRAPPERS]
+    for bad in (starts.to(torch.int32), starts[:-1], starts.cpu(),
+                starts.t()):
+        with pytest.raises(ValueError):
+            planes.bulk_scatter(mid, bad, 0, c2, aux, clean, length, k)
+    with pytest.raises(ValueError):
+        planes.bulk_scatter(mid, starts, 1, c2, aux, clean, length, k)
+    with pytest.raises(ValueError):
+        planes.bulk_scatter(mid.to(torch.int64), starts, 0, c2, aux, clean,
+                            length, k)
     for bad in (good.to(torch.int32), good[:-1], good.cpu()):
         with pytest.raises(ValueError):
-            planes.bulk_histogram(bad, c2, aux, clean, length, k)
+            planes.bulk_slice_counts(bad, mid, cstart, k)
         with pytest.raises(ValueError):
-            planes.bulk_scatter(bins, bad, c2, aux, clean, length, k)
+            planes.bulk_refine(mid.clone(), bad, mid, cstart, k)
+    for bad in (cstart[:-1], cstart.to(torch.int32), cstart.cpu()):
+        with pytest.raises(ValueError):
+            planes.bulk_slice_counts(good, mid, bad, k)
+        with pytest.raises(ValueError):
+            planes.bulk_refine(mid.clone(), good, mid, bad, k)
     with pytest.raises(ValueError):
-        planes.bulk_scatter(bins.to(torch.int64), good, c2, aux, clean,
-                            length, k)
+        planes.bulk_histogram(c2, aux[:-1], clean, length, k)
     with pytest.raises(ValueError):
-        planes.bulk_apply(pl, bins, offsets[:-1], k)
+        planes.bulk_apply(pl, mid, offsets[:-1], k)
     with pytest.raises(ValueError):
-        planes.bulk_apply(pl[:-1], bins, offsets, k)
-    assert planes.bulk_histogram.launches == launched
+        planes.bulk_apply(pl[:-1], mid, offsets, k)
+    assert [getattr(planes, name).launches for name in WRAPPERS] == launched
