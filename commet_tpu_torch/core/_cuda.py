@@ -74,14 +74,15 @@ _SIGNATURES = {
                                       ctypes.c_void_p, ctypes.c_int64,
                                       ctypes.c_int, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_void_p],
+                                      ctypes.c_void_p, ctypes.c_void_p],
                "commet_bulk_apply": [ctypes.c_void_p, ctypes.c_int64,
                                      ctypes.c_int64, ctypes.c_int64,
                                      ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p],
-               # measurement only (chip_smoke.py): the level-1 roll alone and
-               # 4-byte stores in runs
+                                     ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p],
+               # measurement only (chip_smoke.py): the level-1 roll alone
+               # and 4-byte stores in runs
                "commet_bulk_decode": [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_int, *_BATCH, ctypes.c_int,
                                       ctypes.c_void_p],

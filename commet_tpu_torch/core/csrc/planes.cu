@@ -104,16 +104,20 @@
 //     + (key >> 19), and commet_bulk_apply runs a block per fine bin, loads
 //     the slice once, ORs the bin's entries in with shared-memory atomics
 //     and stores it once. What is left is grouping a chunk's entries by
-//     fine bin (65,536 of them at k = 33) so each bin's are contiguous, and
-//     one random 4-byte store an entry (the design before this one) runs at
-//     the card's scattered-store rate, a sector touched a store. So the
-//     grouping is a two-level partition, each level ranking its entries in
-//     shared memory and storing each bin's run with consecutive lanes:
-//     level 1 into coarse bins, regions of R = 2^22 words (16 MiB; the
-//     whole plane below k = 27, at least a slice), 64 a plane and 256 bins
-//     at k = 33, each entry region-relative (27 bits); level 2 each
-//     region's entries into its R / S slices, 256 where k >= 27. 256 x 256
-//     balances the two levels' runs at COMMET's default k.
+//     fine bin (65,536 of them at k = 33). One 4-byte store an entry at a
+//     scattered place runs at the card's scattered-store rate, a sector
+//     touched a store (measured on an H100, PERF.md: 13.6G stores/s in runs
+//     of 1, 91G in runs of 8, 258G in runs of 128), so no pass stores
+//     entries one by one: the grouping is a two-level partition, each level
+//     ranking its entries in shared memory and storing them with
+//     consecutive lanes. Level 1 goes into coarse bins, regions of R = 2^22
+//     words (16 MiB; the whole plane below k = 27, at least a slice), 64 a
+//     plane and 256 bins at k = 33, each entry region-relative (27 bits);
+//     level 2 orders each region's entries by its R / S slices, 256 where
+//     k >= 27. 256 x 256 balances the two levels' runs at COMMET's default
+//     k; 4 MiB regions ORed in with L2 atomics in region order were slower
+//     (the L2's atomic rate, not the plane's bytes, bound them), and so
+//     were 128 KiB slices.
 //       commet_bulk_hist (per batch): a block of 256 reads (a thread a
 //     read) rolls their windows once and counts all four planes' coarse
 //     bins in shared memory; it writes its row of a [blocks, bins] table,
@@ -128,24 +132,38 @@
 //     then each bin's run is stored at its block's index by consecutive
 //     lanes. Runs: a 100 bp read has 68 windows, so a block's 256 reads
 //     give 69,632 entries in 5 tiles, about 54 entries (218 B) a (tile,
-//     bin) run at 256 bins (a full tile, 64); the design before this one
-//     stored about 4 entries a (block, bin) run, one sector a store.
-//       commet_bulk_refine (level 2, per chunk, two launches): tiles of up
-//     to 16,384 entries of one coarse bin (plane D's skewed regions, a |
-//     b, take many tiles: about 18% of plane D's entries lie in its last
-//     region); the counting launch adds each tile's entries per slice to
-//     the fine counts (one atomic a (tile, slice)), the caller scans them
-//     into offsets, and the placing launch takes each (tile, slice)'s run
-//     with one atomic on the slice's cursor, ranks the tile in shared
-//     memory and stores each slice's run with consecutive lanes, about 64
-//     entries a (tile, slice) run; the entries become slice-relative.
-//     Per chunk: each batch rolled twice (at k = 33 the design before this
-//     one rolled it 20 times: 4 histogram rows, 8 scatter rows twice), the
-//     entries written twice and read three times, each plane word of a
-//     bin that holds entries read and written once. Measured on an H100
-//     (PERF.md): 128 KiB slices were slower, and so were 4 MiB regions
-//     ORed in with L2 atomics in region order (the L2's atomic rate, not
-//     the plane's bytes, bound them).
+//     bin) run at 256 bins (a full tile, 64), and a block's run of one
+//     region continues tile after tile (about 272 entries).
+//       commet_bulk_refine (level 2, per chunk, one launch, in place): a
+//     coarse bin's run in mid is cut into tiles of 16,384 entries (plane
+//     D's skewed regions, a | b, take many tiles: about 18% of plane D's
+//     entries lie in its last region). A block reads its tile once into
+//     registers, ranks it by slice in shared memory and writes it back over
+//     the same range with consecutive lanes: one read and one contiguous
+//     write an entry, no second entry buffer (2.15 GB at a 2^27-slot
+//     chunk), no counting launch, no scan of fine counts on the host side
+//     and no global cursor. Slice s of a region becomes one run in each of
+//     the region's tiles (about 90 runs of about 64 entries at k = 33);
+//     the tile's slice starts (spr + 1 values of at most 16,384, uint16)
+//     go to a table laid out per region as [slice][tile], so the apply
+//     reads a slice's starts at consecutive tiles. An entry's slot comes
+//     from a second shared-memory atomic on the scanned cursors, so a
+//     block holds only its 16 entries a thread and two blocks share an SM,
+//     one's loads and stores overlapping the other's ranking. Measured on
+//     an H100 (PERF.md, phase 14's first chunk, in turns): this design
+//     1.54-1.58 ms a chunk; keeping the counting atomic's rank in
+//     registers (one block an SM) 1.81-1.85, in shared memory 1.62-1.81;
+//     aggregating a warp's entries of one slice with __match_any_sync
+//     before the atomic 3.7-6.3 (it costs more than the contention it
+//     saves: outside plane D few lanes of a warp share one of 256 slices).
+//     Level 2 went from 2.63 ms a chunk (two launches) to 1.41.
+//       commet_bulk_apply reads each slice's runs tile by tile, each warp
+//     taking whole runs, tiles strided by warp, four entries a lane in
+//     flight: about 90 runs of 64 entries a slice cost 0.7% against one
+//     run (3.90 ms a chunk against 3.87, 77% of its bound).
+//     Per chunk: each batch rolled twice, the entries written twice and
+//     read twice, the table written and read once, each plane word of a
+//     bin that holds entries read and written once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -565,7 +583,8 @@ constexpr int kRowReads = 256;   // reads (a thread each) of a hist / level-1
 constexpr int kSteps = 16;       // positions a level-1 tile rolls
 constexpr int kTile1 = 4 * kSteps * kRowReads;  // entries of a level-1 tile
 constexpr int kRefineThreads = 1024;
-constexpr int kTile2 = 16 * kRefineThreads;     // entries of a level-2 tile
+constexpr int kPer2 = 16;                       // entries a level-2 thread holds
+constexpr int kTile2 = kPer2 * kRefineThreads;  // entries of a level-2 tile
 constexpr int kMaxSpr = 256;                    // slices a region at most
 constexpr int kApplyThreads = 1024;
 
@@ -736,31 +755,36 @@ __global__ void __launch_bounds__(kRowReads, 2)
   }
 }
 
-// Level 2, a block per tile: tile t is entries [lo, lo + kTile2) of coarse
-// bin c's run mid[cstart[c] .. cstart[c + 1]), c the bin with tprefix[c] <=
-// t < tprefix[c + 1] (tiles of a bin: the caller's ceil(count / kTile2),
-// scanned), lo = cstart[c] + (t - tprefix[c]) * kTile2; blocks past the last
-// tile exit. The block counts its entries per slice in shared memory (cnt:
-// [spr]). Counting (Place = false): adds each slice's count to fine[c * spr
-// + s] (slot, one atomic a (tile, slice)). Placing: takes a run of each
-// slice's indices in bins with one atomic on its cursor (slot), places each
-// entry, slice-relative (& (2^sb - 1)), at its slice's next slot of a
-// staging tile (dynamic shared memory: kTile2 words, then kTile2 slice
-// bytes), and stores each slice's run with consecutive lanes. The tile is
-// read from mid twice (the second time mostly from the L2).
-template <bool Place>
+// Level 2, a block per tile, in place: tile t is entries [lo, lo + kTile2)
+// of coarse bin c's run mid[cstart[c] .. cstart[c + 1]), c the bin with
+// tprefix[c] <= t < tprefix[c + 1] (tiles of a bin: the caller's
+// ceil(count / kTile2), scanned), lo = cstart[c] + (t - tprefix[c]) *
+// kTile2; blocks past the last tile exit. The block reads its tile once
+// into registers (kPer2 entries a thread), counts them per slice in shared
+// memory (cnt: [spr]), scans the counts, places each entry at its slice's
+// next slot of a staging tile (dynamic shared memory, kTile2 words) and
+// writes the staged tile back over the same range, consecutive lanes on
+// consecutive words: the tile sorted by slice, each entry unchanged. No
+// block reads or writes another's range, and a block has read all of its
+// tile before it writes any of it. Its row of slice starts, spr + 1 values
+// of at most kTile2, goes to table[(spr + 1) * tprefix[c] + s * nt + (t -
+// tprefix[c])] (a region's rows as [slice][tile], nt its tiles), and each
+// slice's count is added to fine[c * spr + s] (one atomic a (tile, slice)).
+// An entry's slot comes from a second atomic pass on the scanned cursors,
+// so only the entries stay in registers (two blocks an SM).
 __global__ void __launch_bounds__(kRefineThreads, 2)
-    bulk_refine_kernel(const uint32_t* __restrict__ mid,
+    bulk_refine_kernel(uint32_t* __restrict__ mid,
                        const int64_t* __restrict__ cstart,
                        const int64_t* __restrict__ tprefix, int nbins,
-                       int spr, int sb, unsigned long long* __restrict__ slot,
-                       uint32_t* __restrict__ bins) {
+                       int spr, int sb, uint16_t* __restrict__ table,
+                       unsigned long long* __restrict__ fine) {
+  extern __shared__ uint32_t stage[];  // [kTile2]
   __shared__ uint32_t cnt[kMaxSpr], lstart[kMaxSpr + 1], scratch[32];
-  __shared__ unsigned long long base[kMaxSpr];
   __shared__ int bin;
   const int64_t t = blockIdx.x;
   if (t >= tprefix[nbins]) return;  // block-uniform
-  if (threadIdx.x == 0) {  // the greatest c with tprefix[c] <= t
+  const int tid = threadIdx.x;
+  if (tid == 0) {  // the greatest c with tprefix[c] <= t
     int lo = 0, hi = nbins;
     while (hi - lo > 1) {
       const int m = (lo + hi) / 2;
@@ -768,59 +792,63 @@ __global__ void __launch_bounds__(kRefineThreads, 2)
     }
     bin = lo;
   }
-  for (int s = threadIdx.x; s < spr; s += blockDim.x) cnt[s] = 0;
+  for (int s = tid; s < spr; s += kRefineThreads) cnt[s] = 0;
   __syncthreads();
   const int c = bin;
-  const int64_t lo = cstart[c] + (t - tprefix[c]) * kTile2;
+  const int64_t t0 = tprefix[c], nt = tprefix[c + 1] - t0;
+  const int64_t lo = cstart[c] + (t - t0) * kTile2;
   const int64_t rest = cstart[c + 1] - lo;
   const int n = (int)(rest < kTile2 ? rest : kTile2);
-  const uint32_t* src = mid + lo;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    atomicAdd(cnt + (src[i] >> sb), 1u);
-  __syncthreads();
-  unsigned long long* fine = slot + (int64_t)c * spr;
-  if constexpr (!Place) {
-    for (int s = threadIdx.x; s < spr; s += blockDim.x)
-      if (cnt[s]) atomicAdd(fine + s, (unsigned long long)cnt[s]);
-  } else {
-    extern __shared__ uint32_t stage[];  // [kTile2]
-    uint8_t* sslice = reinterpret_cast<uint8_t*>(stage + kTile2);  // kTile2
-    for (int s = threadIdx.x; s < spr; s += blockDim.x)
-      base[s] = cnt[s] ? atomicAdd(fine + s, (unsigned long long)cnt[s]) : 0;
-    block_scan(cnt, lstart, spr, scratch);
-    for (int s = threadIdx.x; s < spr; s += blockDim.x) cnt[s] = lstart[s];
-    __syncthreads();
-    const uint32_t emask = (uint32_t)low_mask(sb);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t v = __ldcs(src + i);
-      const uint32_t s = v >> sb;
-      const uint32_t at = atomicAdd(cnt + s, 1u);
-      stage[at] = v & emask;
-      sslice[at] = (uint8_t)s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int s = sslice[i];
-      bins[base[s] + (i - lstart[s])] = stage[i];
-    }
+  uint32_t* tile = mid + lo;
+  uint32_t v[kPer2];
+#pragma unroll
+  for (int j = 0; j < kPer2; ++j) {
+    const int i = tid + j * kRefineThreads;
+    v[j] = i < n ? tile[i] : 0u;
   }
+#pragma unroll
+  for (int j = 0; j < kPer2; ++j)
+    if (tid + j * kRefineThreads < n) atomicAdd(cnt + (v[j] >> sb), 1u);
+  __syncthreads();
+  block_scan(cnt, lstart, spr, scratch);
+  uint16_t* row = table + (spr + 1) * t0 + (t - t0);
+  for (int s = tid; s <= spr; s += kRefineThreads)
+    row[s * nt] = (uint16_t)lstart[s];
+  unsigned long long* f = fine + (int64_t)c * spr;
+  for (int s = tid; s < spr; s += kRefineThreads)
+    if (cnt[s]) atomicAdd(f + s, (unsigned long long)cnt[s]);
+  __syncthreads();
+  for (int s = tid; s < spr; s += kRefineThreads) cnt[s] = lstart[s];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPer2; ++j)
+    if (tid + j * kRefineThreads < n)
+      stage[atomicAdd(cnt + (v[j] >> sb), 1u)] = v[j];
+  __syncthreads();
+  for (int i = tid; i < n; i += kRefineThreads) tile[i] = stage[i];
 }
 
-// A block per bin, the last bin first: bin = plane * nslices + j holds
-// words [j * sw, (j + 1) * sw) of its plane. The slice is loaded into
-// shared memory once, the entries bins[offsets[bin] .. offsets[bin + 1])
-// are ORed in with shared-memory atomics, and the slice is stored once. A
-// bin without entries touches nothing.
+// A block per fine bin, the last bin first: bin = plane * nslices + j holds
+// words [j * sw, (j + 1) * sw) of its plane, slice s = bin % spr of coarse
+// bin c = bin / spr. A bin whose fine count is 0 touches nothing. Else the
+// slice is loaded into shared memory once; each warp takes whole runs, the
+// region's tiles strided by warp: tile t's run of slice s is mid[cstart[c]
+// + t * kTile2 + start[s][t] .. + start[s + 1][t]) (level 2's table, its
+// two rows read at consecutive tiles by consecutive warps), four entries a
+// lane in flight, each ORed in (entry & (2^sb - 1)) with a shared-memory
+// atomic; then the slice is stored once.
 __global__ void __launch_bounds__(kApplyThreads)
     bulk_apply_kernel(uint32_t* __restrict__ planes, int64_t pw,
                       int64_t nslices, int64_t sw,
-                      const uint32_t* __restrict__ bins,
-                      const unsigned long long* __restrict__ offsets) {
+                      const uint32_t* __restrict__ mid,
+                      const uint16_t* __restrict__ table,
+                      const unsigned long long* __restrict__ fine,
+                      const int64_t* __restrict__ cstart,
+                      const int64_t* __restrict__ tprefix, int spr, int sb) {
   extern __shared__ uint4 slice4[];
   uint32_t* slice = reinterpret_cast<uint32_t*>(slice4);
   const int64_t bin = (int64_t)gridDim.x - 1 - blockIdx.x;
-  const unsigned long long lo = offsets[bin], hi = offsets[bin + 1];
-  if (lo == hi) return;
+  if (fine[bin] == 0) return;
   uint32_t* words = planes + (bin / nslices) * pw + (bin % nslices) * sw;
   const bool vec = sw % 4 == 0;  // then words is 16-byte aligned
   if (vec) {
@@ -832,10 +860,28 @@ __global__ void __launch_bounds__(kApplyThreads)
     for (int64_t i = threadIdx.x; i < sw; i += blockDim.x) slice[i] = words[i];
   }
   __syncthreads();
-#pragma unroll 8
-  for (unsigned long long e = lo + threadIdx.x; e < hi; e += blockDim.x) {
-    const uint32_t v = __ldcs(bins + e);
-    atomicOr(slice + (v >> 5), 1u << (v & 31));
+  const int64_t c = bin / spr;
+  const int s = (int)(bin - c * spr);
+  const int64_t t0 = tprefix[c], nt = tprefix[c + 1] - t0;
+  const uint16_t* row = table + (spr + 1) * t0 + s * nt;  // + nt: s + 1
+  const uint32_t* base = mid + cstart[c];
+  const uint32_t emask = (1u << sb) - 1u;  // sb <= 19
+  const int lane = threadIdx.x & 31;
+  for (int64_t t = threadIdx.x >> 5; t < nt; t += kApplyThreads / 32) {
+    const int a = row[t], b = row[nt + t];
+    const uint32_t* run = base + t * kTile2;
+    for (int e = a + lane; e < b; e += 128) {
+      uint32_t x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        x[q] = e + 32 * q < b ? __ldcs(run + e + 32 * q) : 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (e + 32 * q < b) {
+          const uint32_t w = x[q] & emask;
+          atomicOr(slice + (w >> 5), 1u << (w & 31));
+        }
+    }
   }
   __syncthreads();
   if (vec) {
@@ -1039,48 +1085,46 @@ extern "C" int commet_bulk_scatter(void* mid, const void* starts,
   return (int)cudaGetLastError();
 }
 
-// Level 2 of a chunk: mid holds coarse bin c's entries at [cstart[c],
-// cstart[c + 1]) ([nbins + 1] int64), tprefix ([nbins + 1] int64) its tiles'
-// scan, ntiles >= tprefix[nbins] blocks. place = 0: adds each slice's
-// entries to slot (fine counts, [nbins * spr] uint64); place = 1: slot holds
-// each slice's next index in bins (advanced past its entries), and the
-// slice-relative entries are written there.
-extern "C" int commet_bulk_refine(const void* mid, const void* cstart,
+// Level 2 of a chunk, in place: mid holds coarse bin c's entries at
+// [cstart[c], cstart[c + 1]) ([nbins + 1] int64), tprefix ([nbins + 1]
+// int64) its tiles' scan, ntiles >= tprefix[nbins] blocks. Sorts each tile
+// by slice, writes its slice starts into table (uint16, (spr + 1) *
+// tprefix[nbins] values) and adds each slice's entries to fine ([nbins *
+// spr] uint64).
+extern "C" int commet_bulk_refine(void* mid, const void* cstart,
                                   const void* tprefix, int64_t ntiles,
-                                  int nbins, int spr, int sb, void* slot,
-                                  void* bins, int place, void* stream) {
+                                  int nbins, int spr, int sb, void* table,
+                                  void* fine, void* stream) {
   if (ntiles <= 0) return 0;
   if (ntiles > INT32_MAX || spr > kMaxSpr) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* m = (const uint32_t*)mid;
-  const int64_t *cs = (const int64_t*)cstart, *tp = (const int64_t*)tprefix;
-  unsigned long long* sl = (unsigned long long*)slot;
-  if (!place) {
-    bulk_refine_kernel<false><<<(unsigned)ntiles, kRefineThreads, 0, st>>>(
-        m, cs, tp, nbins, spr, sb, sl, nullptr);
-  } else {
-    const int smem = kTile2 * 5;
-    cudaError_t err = allow_smem(bulk_refine_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    bulk_refine_kernel<true><<<(unsigned)ntiles, kRefineThreads, smem, st>>>(
-        m, cs, tp, nbins, spr, sb, sl, (uint32_t*)bins);
-  }
+  const int smem = kTile2 * (int)sizeof(uint32_t);
+  cudaError_t err = allow_smem(bulk_refine_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bulk_refine_kernel<<<(unsigned)ntiles, kRefineThreads, smem,
+                       (cudaStream_t)stream>>>(
+      (uint32_t*)mid, (const int64_t*)cstart, (const int64_t*)tprefix, nbins,
+      spr, sb, (uint16_t*)table, (unsigned long long*)fine);
   return (int)cudaGetLastError();
 }
 
-// ORs every bin's entries into planes ([4 * pw] words, updated in place);
-// offsets: [4 * nslices + 1] uint64, bin i's entries at bins[offsets[i] ..
-// offsets[i + 1]); sw words a slice (at most the opt-in shared memory).
+// ORs every fine bin's entries into planes ([4 * pw] words, updated in
+// place): bin i = c * spr + s, its runs in mid at the tiles of coarse bin c
+// (cstart, tprefix as level 2's), their starts in table (level 2's); fine
+// ([4 * nslices] uint64) its entries; sw words a slice (at most the opt-in
+// shared memory).
 extern "C" int commet_bulk_apply(void* planes, int64_t pw, int64_t nslices,
-                                 int64_t sw, const void* bins,
-                                 const void* offsets, void* stream) {
+                                 int64_t sw, const void* mid,
+                                 const void* table, const void* fine,
+                                 const void* cstart, const void* tprefix,
+                                 int spr, int sb, void* stream) {
   const int smem = (int)(sw * 4);
   cudaError_t err = allow_smem(bulk_apply_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   bulk_apply_kernel<<<(unsigned)(4 * nslices), kApplyThreads, smem,
                       (cudaStream_t)stream>>>(
-      (uint32_t*)planes, pw, nslices, sw, (const uint32_t*)bins,
-      (const unsigned long long*)offsets);
+      (uint32_t*)planes, pw, nslices, sw, (const uint32_t*)mid,
+      (const uint16_t*)table, (const unsigned long long*)fine,
+      (const int64_t*)cstart, (const int64_t*)tprefix, spr, sb);
   return (int)cudaGetLastError();
 }
 

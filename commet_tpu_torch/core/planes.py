@@ -321,16 +321,18 @@ def bulk_workspace_bytes(k: int, chunk: int, batch_slots: int,
                          batch_bytes: int, batch_rows: int) -> int:
     """Device bytes one bulk chunk holds beside the planes: for the batches
     up to and including the one that reaches ``chunk`` slots, their upload
-    (``batch_bytes`` each), their entries in both levels' buffers (level
-    1's and level 2's, 4 B a plane a window slot each) and their histogram
+    (``batch_bytes`` each), their entries in the one entry buffer (4 B a
+    plane a window slot; level 2 sorts it in place) and their histogram
     tables with the scan's copies (20 B a coarse bin a block of
-    BULK_BLOCK_READS of the ``batch_rows`` reads); and the fine counts,
-    offsets and cursors and the level-2 tile scan."""
+    BULK_BLOCK_READS of the ``batch_rows`` reads); level 2's table
+    (bulk_table_size int16 values for those entries); and the fine counts
+    and the coarse bins' starts and tile scan."""
     n_batches = chunk // max(1, batch_slots) + 1
     nbins = bulk_bins(k)[0]
     blocks = -(-batch_rows // BULK_BLOCK_READS)
-    return (n_batches * (32 * batch_slots + batch_bytes + 20 * nbins * blocks)
-            + 3 * 8 * (4 * bulk_layout(k)[2] + 1) + 4 * 8 * (nbins + 1))
+    return (n_batches * (16 * batch_slots + batch_bytes + 20 * nbins * blocks)
+            + 2 * bulk_table_size(4 * n_batches * batch_slots, k)
+            + 8 * 4 * bulk_layout(k)[2] + 4 * 8 * (nbins + 1))
 
 
 def _coarse_entries(codes2, valid_or_lengths, clean: bool, length: int,
@@ -488,147 +490,191 @@ def _fine_entries(mid: torch.Tensor, cstart: torch.Tensor, k: int):
     return cbin * spr + (v >> sb), v & ((1 << sb) - 1)
 
 
-def _check_level2(fn: str, mid: torch.Tensor, cstart: torch.Tensor,
+def _tile_prefix(cstart: torch.Tensor) -> torch.Tensor:
+    """[nbins + 1] int64: the scan of each coarse bin's level-2 tiles,
+    ceil(entries / BULK_TILE), made where ``cstart`` lies."""
+    n = cstart[1:] - cstart[:-1]
+    tprefix = torch.zeros_like(cstart)
+    tprefix[1:] = torch.cumsum((n + BULK_TILE - 1) // BULK_TILE, 0)
+    return tprefix
+
+
+def bulk_table_size(entries: int, k: int) -> int:
+    """int16 values of level 2's table for a buffer of ``entries``: spr + 1
+    slice starts for each of at most ceil(entries / BULK_TILE) + nbins
+    tiles (a coarse bin's last tile may be short)."""
+    nbins, spr = bulk_bins(k)
+    return (spr + 1) * (-(-entries // BULK_TILE) + nbins)
+
+
+def bulk_table(mid: torch.Tensor, k: int) -> torch.Tensor:
+    """Level 2's table for level 1's buffer ``mid``: [bulk_table_size]
+    int16 zeros on mid's device."""
+    return torch.zeros(bulk_table_size(mid.numel(), k), dtype=torch.int16,
+                       device=mid.device)
+
+
+def _tile_rows(cstart: torch.Tensor, k: int):
+    """(at [ntiles, spr + 1], tbin [ntiles], tile_lo [ntiles]) int64: where
+    each level-2 tile's slice starts lie in the table (coarse bin c's rows
+    at (spr + 1) * tprefix[c] as [slice][tile]), its coarse bin and its
+    first index in mid."""
+    nbins, spr = bulk_bins(k)
+    tprefix = _tile_prefix(cstart)
+    nt = tprefix[1:] - tprefix[:-1]
+    tbin = torch.repeat_interleave(torch.arange(nbins, device=cstart.device),
+                                   nt)
+    local = torch.arange(tbin.numel(), device=cstart.device) - tprefix[tbin]
+    at = ((spr + 1) * tprefix[tbin] + local)[:, None] + torch.arange(
+        spr + 1, device=cstart.device)[None, :] * nt[tbin][:, None]
+    return at, tbin, cstart[tbin] + local * BULK_TILE
+
+
+def bulk_runs(table: torch.Tensor, cstart: torch.Tensor, k: int):
+    """(fine, first, n) [ntiles * spr] int64: each (tile, slice) run of
+    level 2's sorted buffer, in buffer order (tile by tile, slice by
+    slice): its fine bin c * spr + s, its first index in mid and its
+    entries, from the tiles' slice starts in ``table``."""
+    spr = bulk_bins(k)[1]
+    at, tbin, tile_lo = _tile_rows(cstart, k)
+    starts = table[at.to(table.device)].to(torch.int64)
+    fine = tbin[:, None] * spr + torch.arange(spr, device=tbin.device)
+    return (fine.reshape(-1), (tile_lo[:, None] + starts[:, :-1]).reshape(-1),
+            (starts[:, 1:] - starts[:, :-1]).reshape(-1))
+
+
+def bulk_tile_keys(mid: torch.Tensor, cstart: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """[cstart[-1]] int64: each of level 1's entries' (tile, slice) key,
+    tile * spr + (entry >> sb), tiles numbered as level 2's; a stable sort
+    by it is level 2's order."""
+    spr = bulk_bins(k)[1]
+    tprefix = _tile_prefix(cstart)
+    fine, _entry = _fine_entries(mid, cstart, k)
+    cbin = fine // spr
+    tile = tprefix[cbin] + (torch.arange(fine.numel(), device=mid.device)
+                            - cstart[cbin]) // BULK_TILE
+    return tile * spr + fine % spr
+
+
+def _check_level2(fn: str, mid: torch.Tensor, table: torch.Tensor,
+                  counts: torch.Tensor, cstart: torch.Tensor,
                   k: int) -> None:
     _check_int32(fn, "mid", mid, 1, mid.device)
     _check_bulk_vector(fn, "cstart", cstart, bulk_bins(k)[0] + 1,
                        mid.device)
+    _check_bulk_vector(fn, "counts", counts, 4 * bulk_layout(k)[2],
+                       mid.device)
+    size = bulk_table_size(mid.numel(), k)
+    if table.device != mid.device or table.dtype != torch.int16 \
+            or table.dim() != 1 or table.numel() < size \
+            or not table.is_contiguous():
+        raise ValueError(f"{fn}: table must be a contiguous int16 vector of "
+                         f"at least {size} values on {mid.device}, got "
+                         f"{table.dtype} {tuple(table.shape)} on "
+                         f"{table.device}")
 
 
-def _refine_launch(slot: torch.Tensor, bins, mid: torch.Tensor,
-                   cstart: torch.Tensor, k: int, place: bool) -> None:
-    """commet_bulk_refine over tiles of up to BULK_TILE entries of one
-    coarse bin: the tiles' scan is made here, on the card, and the grid is
-    sized by mid (at least as many entries as cstart[-1]) without reading
-    it back."""
+def bulk_refine_plain(mid: torch.Tensor, table: torch.Tensor,
+                      counts: torch.Tensor, cstart: torch.Tensor,
+                      k: int) -> None:
+    """bulk_refine in plain PyTorch: each tile stably sorted by slice in
+    place, its slice starts written into ``table``, each slice's entries
+    added to ``counts`` (the kernel's order within a (tile, slice) run is
+    the order its shared-memory atomics land in)."""
+    spr = bulk_bins(k)[1]
+    key = bulk_tile_keys(mid, cstart, k)
+    total = key.numel()
+    mid[:total] = mid[:total][torch.argsort(key, stable=True)]
+    at, tbin, _tile_lo = _tile_rows(cstart, k)
+    n = torch.bincount(key, minlength=tbin.numel() * spr).view(-1, spr)
+    starts = torch.zeros((tbin.numel(), spr + 1), dtype=torch.int64,
+                         device=mid.device)
+    starts[:, 1:] = torch.cumsum(n, 1)
+    table[at] = starts.to(torch.int16)
+    counts.view(-1, spr).index_add_(0, tbin, n)
+
+
+def bulk_refine(mid: torch.Tensor, table: torch.Tensor, counts: torch.Tensor,
+                cstart: torch.Tensor, k: int) -> None:
+    """Level 2 of the bulk build, in place: each tile of up to BULK_TILE
+    entries of one coarse bin of level 1's buffer ``mid`` (coarse bin c's
+    entries at [cstart[c], cstart[c + 1]), ``cstart`` [nbins + 1] int64
+    from bulk_starts) is sorted by its entries' slice (entry >> sb) over
+    its own range; ``table`` (bulk_table) gets each tile's spr + 1 slice
+    starts, a coarse bin's rows at (spr + 1) * tprefix[c] as [slice][tile]
+    (tprefix the tiles' scan), and ``counts`` ([4 * nslices] int64) each
+    fine bin's entries added. A CUDA tensor runs csrc/planes.cu
+    (commet_bulk_refine, counted in ``bulk_refine.launches``), a CPU tensor
+    runs bulk_refine_plain."""
+    fn = "bulk_refine"
+    _check_level2(fn, mid, table, counts, cstart, k)
+    if mid.device.type == "cpu":
+        bulk_refine_plain(mid, table, counts, cstart, k)
+        return
+    if mid.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {mid.device}")
     nbins, spr = bulk_bins(k)
-    n = cstart[1:] - cstart[:-1]
-    tprefix = torch.zeros(nbins + 1, dtype=torch.int64, device=mid.device)
-    tprefix[1:] = torch.cumsum((n + BULK_TILE - 1) // BULK_TILE, 0)
-    ntiles = -(-mid.numel() // BULK_TILE) + nbins
+    tprefix = _tile_prefix(cstart)
+    ntiles = -(-mid.numel() // BULK_TILE) + nbins  # no read-back
     with torch.cuda.device(mid.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch("commet_bulk_refine", _ptr(mid), _ptr(cstart), _ptr(tprefix),
                 ctypes.c_int64(ntiles), ctypes.c_int(nbins),
                 ctypes.c_int(spr), ctypes.c_int(bulk_layout(k)[0]),
-                _ptr(slot), ctypes.c_void_p(0 if bins is None else
-                                            bins.data_ptr()),
-                ctypes.c_int(int(place)), ctypes.c_void_p(stream))
-
-
-def bulk_slice_counts_plain(mid: torch.Tensor, cstart: torch.Tensor,
-                            k: int) -> torch.Tensor:
-    """[4 * nslices] int64 entries per fine bin, in plain PyTorch."""
-    fine, _entry = _fine_entries(mid, cstart, k)
-    return torch.bincount(fine, minlength=4 * bulk_layout(k)[2])
-
-
-def bulk_slice_counts(counts: torch.Tensor, mid: torch.Tensor,
-                      cstart: torch.Tensor, k: int) -> torch.Tensor:
-    """Add the entries per fine bin (bulk_layout) of level 1's buffer
-    ``mid`` (coarse bin c's entries at [cstart[c], cstart[c + 1]),
-    ``cstart`` [nbins + 1] int64 from bulk_starts) to ``counts`` ([4 *
-    nslices] int64), in place; returns ``counts``. Level 2's first launch:
-    a CUDA tensor runs csrc/planes.cu (commet_bulk_refine counting, counted
-    in ``bulk_slice_counts.launches``), a CPU tensor runs
-    bulk_slice_counts_plain."""
-    fn = "bulk_slice_counts"
-    _check_level2(fn, mid, cstart, k)
-    _check_bulk_vector(fn, "counts", counts, 4 * bulk_layout(k)[2],
-                       mid.device)
-    if mid.device.type == "cpu":
-        counts += bulk_slice_counts_plain(mid, cstart, k)
-        return counts
-    if mid.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {mid.device}")
-    _refine_launch(counts, None, mid, cstart, k, False)
-    bulk_slice_counts.launches += 1
-    return counts
-
-
-bulk_slice_counts.launches = 0
-
-
-def bulk_refine_plain(bins: torch.Tensor, cursor: torch.Tensor,
-                      mid: torch.Tensor, cstart: torch.Tensor,
-                      k: int) -> None:
-    """bulk_refine in plain PyTorch: a fine bin's entries in level 1's
-    order (the kernel's order within a bin is the order its atomics land
-    in)."""
-    fine, entry = _fine_entries(mid, cstart, k)
-    order = torch.argsort(fine, stable=True)
-    fine, entry = fine[order], entry[order]
-    n = torch.bincount(fine, minlength=cursor.numel())
-    rank = torch.arange(fine.numel(), device=fine.device) - (
-        torch.cumsum(n, 0) - n)[fine]
-    bins[cursor[fine] + rank] = entry.to(torch.int32)
-    cursor += n
-
-
-def bulk_refine(bins: torch.Tensor, cursor: torch.Tensor, mid: torch.Tensor,
-                cstart: torch.Tensor, k: int) -> None:
-    """Level 2 of the bulk build: append level 1's entries (``mid``, coarse
-    bin c's at [cstart[c], cstart[c + 1])) to their fine bins, slice-relative
-    (key & (2^sb - 1)), in place: an entry of fine bin i goes to ``bins``
-    ([n] int32) at ``cursor[i]`` ([4 * nslices] int64, each bin's next free
-    index; the offsets bulk_slice_counts' scan gives), which advances. A
-    CUDA tensor runs csrc/planes.cu (commet_bulk_refine placing, counted in
-    ``bulk_refine.launches``), a CPU tensor runs bulk_refine_plain."""
-    fn = "bulk_refine"
-    _check_level2(fn, mid, cstart, k)
-    _check_bulk_vector(fn, "cursor", cursor, 4 * bulk_layout(k)[2],
-                       mid.device)
-    _check_int32(fn, "bins", bins, 1, mid.device)
-    if mid.device.type == "cpu":
-        bulk_refine_plain(bins, cursor, mid, cstart, k)
-        return
-    if mid.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {mid.device}")
-    _refine_launch(cursor, bins, mid, cstart, k, True)
+                _ptr(table), _ptr(counts), ctypes.c_void_p(stream))
     bulk_refine.launches += 1
 
 
 bulk_refine.launches = 0
 
 
-def bulk_apply_plain(planes: torch.Tensor, bins: torch.Tensor,
-                     offsets: torch.Tensor, k: int) -> torch.Tensor:
-    """bulk_apply in plain PyTorch: every entry's word and bit in the plane
-    set, set through one accumulating index_put_ of the distinct new
-    bits."""
-    _sb, sw, ns, _rb = bulk_layout(k)
-    n = offsets[1:] - offsets[:-1]
-    b = torch.repeat_interleave(torch.arange(4 * ns, device=bins.device), n)
-    start = int(offsets[0])
-    e = bins[start:start + b.numel()].to(torch.int64)
+def bulk_apply_plain(planes: torch.Tensor, mid: torch.Tensor,
+                     table: torch.Tensor, counts: torch.Tensor,
+                     cstart: torch.Tensor, k: int) -> torch.Tensor:
+    """bulk_apply in plain PyTorch: every (tile, slice) run of a fine bin
+    whose count is not 0, its entries' words and bits in the plane set,
+    set through _or_bits."""
+    sb, sw, ns, _rb = bulk_layout(k)
+    fine, first, n = bulk_runs(table, cstart, k)
+    run = torch.repeat_interleave(torch.arange(n.numel(), device=mid.device),
+                                  n)
+    pos = first[run] + torch.arange(run.numel(), device=mid.device) - (
+        torch.cumsum(n, 0) - n)[run]
+    b = fine[run]
+    keep = counts[b] > 0
+    b, e = b[keep], mid[pos[keep]].to(torch.int64) & ((1 << sb) - 1)
     _or_bits(planes, (b // ns) * plane_words(k) + (b % ns) * sw + (e >> 5),
              e & 31)
     return planes
 
 
-def bulk_apply(planes: torch.Tensor, bins: torch.Tensor,
-               offsets: torch.Tensor, k: int) -> torch.Tensor:
-    """OR every bin's entries into ``planes`` (a four-plane set), in place;
-    returns ``planes``. Bin i's entries are bins[offsets[i] : offsets[i +
-    1]] (``offsets`` [4 * nslices + 1] int64). The last pass of the bulk
-    build, each plane word read and written once: a CUDA tensor runs
-    csrc/planes.cu (commet_bulk_apply, counted in ``bulk_apply.launches``),
-    a CPU tensor runs bulk_apply_plain."""
+def bulk_apply(planes: torch.Tensor, mid: torch.Tensor, table: torch.Tensor,
+               counts: torch.Tensor, cstart: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """OR every fine bin's entries into ``planes`` (a four-plane set), in
+    place; returns ``planes``. Level 2's ``mid``, ``table`` and ``counts``
+    (bulk_refine over ``cstart``): fine bin c * spr + s is the run of slice
+    s in each tile of coarse bin c; a bin whose count is 0 is not touched.
+    The last pass of the bulk build, each plane word read and written once:
+    a CUDA tensor runs csrc/planes.cu (commet_bulk_apply, counted in
+    ``bulk_apply.launches``), a CPU tensor runs bulk_apply_plain."""
     fn = "bulk_apply"
-    _check_planes(fn, planes, k, bins.device)
-    _check_int32(fn, "bins", bins, 1, bins.device)
-    _sb, sw, ns, _rb = bulk_layout(k)
-    _check_bulk_vector(fn, "offsets", offsets, 4 * ns + 1, bins.device)
-    if bins.device.type == "cpu":
-        return bulk_apply_plain(planes, bins, offsets, k)
-    if bins.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {bins.device}")
-    with torch.cuda.device(bins.device):
+    _check_planes(fn, planes, k, mid.device)
+    _check_level2(fn, mid, table, counts, cstart, k)
+    if mid.device.type == "cpu":
+        return bulk_apply_plain(planes, mid, table, counts, cstart, k)
+    if mid.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {mid.device}")
+    sb, sw, ns, _rb = bulk_layout(k)
+    tprefix = _tile_prefix(cstart)
+    with torch.cuda.device(mid.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch("commet_bulk_apply", _ptr(planes),
                 ctypes.c_int64(plane_words(k)), ctypes.c_int64(ns),
-                ctypes.c_int64(sw), _ptr(bins), _ptr(offsets),
-                ctypes.c_void_p(stream))
+                ctypes.c_int64(sw), _ptr(mid), _ptr(table), _ptr(counts),
+                _ptr(cstart), _ptr(tprefix), ctypes.c_int(bulk_bins(k)[1]),
+                ctypes.c_int(sb), ctypes.c_void_p(stream))
     bulk_apply.launches += 1
     return planes
 
@@ -668,8 +714,8 @@ class BulkChunk:
     ``add`` takes a packed batch: on the card bulk_histogram counts its
     entries per block and coarse bin at once, and the batch is kept until
     ``flush``, which writes every kept batch's windows into the planes
-    (the tables' scan, bulk_scatter of each batch, bulk_slice_counts and
-    bulk_refine of the chunk, one bulk_apply; a CPU tensor takes
+    (the tables' scan, bulk_scatter of each batch, bulk_refine of the
+    chunk, one bulk_apply; a CPU tensor takes
     bulk_build_planes_plain) and empties the chunk. ``slots`` counts the
     kept batches' window slots (bulk_slots); after a flush on the card
     ``counts`` holds that chunk's entries per fine bin. Counterpart of the
@@ -711,8 +757,8 @@ class BulkChunk:
 def _bulk_flush(planes: torch.Tensor, batches, tables: torch.Tensor,
                 size: int, k: int) -> torch.Tensor:
     """The bulk build of one chunk whose histogram ``tables`` are given:
-    level 1 into a buffer of ``size`` entries, level 2 into a second one,
-    the apply; returns the entries per fine bin."""
+    level 1 into a buffer of ``size`` entries, level 2 sorting its tiles in
+    place, the apply; returns the entries per fine bin."""
     starts, cstart = bulk_starts(tables)
     mid = torch.empty(size, dtype=torch.int32, device=planes.device)
     row0 = 0
@@ -720,16 +766,12 @@ def _bulk_flush(planes: torch.Tensor, batches, tables: torch.Tensor,
         bulk_scatter(mid, starts, row0, *batch, k)
         row0 += bulk_blocks(batch[0])
     del starts
-    counts = bulk_slice_counts(
-        torch.zeros(4 * bulk_layout(k)[2], dtype=torch.int64,
-                    device=planes.device), mid, cstart, k)
-    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64,
-                          device=planes.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    bins = torch.empty_like(mid)
-    bulk_refine(bins, offsets[:-1].clone(), mid, cstart, k)
+    counts = torch.zeros(4 * bulk_layout(k)[2], dtype=torch.int64,
+                         device=planes.device)
+    table = bulk_table(mid, k)
+    bulk_refine(mid, table, counts, cstart, k)
+    bulk_apply(planes, mid, table, counts, cstart, k)
     del mid
-    bulk_apply(planes, bins, offsets, k)
     return counts
 
 
@@ -738,7 +780,7 @@ def bulk_build_planes(planes: torch.Tensor, batches, k: int) -> torch.Tensor:
     packed ``batches`` (one chunk: (codes2, valid_or_lengths, clean,
     length) each), in place; returns ``planes``. The bulk build of
     commet_tpu (K9): on the card csrc/planes.cu's bulk_histogram,
-    bulk_scatter, bulk_slice_counts, bulk_refine and bulk_apply, on the CPU
+    bulk_scatter, bulk_refine and bulk_apply, on the CPU
     bulk_build_planes_plain."""
     chunk = BulkChunk(planes, k)
     for batch in batches:

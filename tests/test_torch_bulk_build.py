@@ -1,7 +1,6 @@
 """The port's bulk plane build (K9: core/planes.py BulkChunk,
-bulk_build_planes and its plain version, the plain versions of the five
-kernel wrappers bulk_histogram / bulk_scatter / bulk_slice_counts /
-bulk_refine / bulk_apply) and its switches
+bulk_build_planes and its plain version, the plain versions of the four
+kernel wrappers bulk_histogram / bulk_scatter / bulk_refine / bulk_apply) and its switches
 in engine/engine.py (COMMET_TPU_BULK_BUILD, COMMET_TPU_BULK_CHUNK, the plane
 cohorts' smaller chunk) against commet_tpu's bulk build
 (kernels.bulk_plane_sorted, bulk_scatter_set, bulk_or_plane;
@@ -37,10 +36,10 @@ def _batch(codes, clean=False):
 
 
 def _two_level(batches, k):
-    """The chunk's (bins, offsets) through the kernel wrappers on CPU
-    tensors (their plain versions): histogram tables, their scan, level 1,
-    level 2's counts, their scan and its placing; checks that the cursors
-    end at the next bin's offset."""
+    """The chunk through the kernel wrappers on CPU tensors (their plain
+    versions): histogram tables, their scan, level 1, level 2 sorting each
+    tile in place; returns (mid, table, counts, cstart) and checks that the
+    fine counts sum to the chunk's entries."""
     ns, nbins = planes.bulk_layout(k)[2], planes.bulk_bins(k)[0]
     tables = torch.cat([torch.zeros((0, nbins), dtype=torch.int32)]
                        + [planes.bulk_histogram(*bt, k) for bt in batches])
@@ -51,15 +50,11 @@ def _two_level(batches, k):
     for bt in batches:
         planes.bulk_scatter(mid, starts, row0, *bt, k)
         row0 += planes.bulk_blocks(bt[0])
-    counts = planes.bulk_slice_counts(torch.zeros(4 * ns, dtype=torch.int64),
-                                      mid, cstart, k)
-    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64)
-    offsets[1:] = torch.cumsum(counts, 0)
-    cursor = offsets[:-1].clone()
-    bins = torch.empty_like(mid)
-    planes.bulk_refine(bins, cursor, mid, cstart, k)
-    assert torch.equal(cursor, offsets[1:])
-    return bins, offsets
+    counts = torch.zeros(4 * ns, dtype=torch.int64)
+    table = planes.bulk_table(mid, k)
+    planes.bulk_refine(mid, table, counts, cstart, k)
+    assert int(counts.sum()) == int(cstart[-1])
+    return mid, table, counts, cstart
 
 
 def _wrappers_build(pl, batches, k):
@@ -72,7 +67,7 @@ def _wrappers_build(pl, batches, k):
 def test_bulk_build_matches_jax_bulk(k):
     """Two flushes of the same reads (3% invalid bases) as
     tests/test_kernels.py runs commet_tpu's bulk build: the port's
-    bulk_build_planes (its plain version on the CPU), the five wrappers'
+    bulk_build_planes (its plain version on the CPU), the four wrappers'
     plain versions in turn, and the per-batch build give commet_tpu's
     planes word for word."""
     rng = np.random.default_rng(11)
@@ -332,7 +327,7 @@ def test_bulk_memory_checks(tmp_path, monkeypatch):
     lpad, rows = 96, 65536  # 70 bp reads; one batch holds them all
     assert work == planes.bulk_workspace_bytes(
         k, chunk, rows * (lpad - k + 1), rows * 4 * (6 + 3 + 1), rows)
-    assert work > 32 * chunk  # both levels' entry buffers
+    assert 16 * chunk < work < 32 * chunk  # one entry buffer, not two
     free = {"bytes": planes.plane_bytes(k) + work - 1}
     monkeypatch.setattr(eng, "_free_bytes", lambda dev=None: free["bytes"])
     with pytest.raises(MemoryError, match="COMMET_TPU_BULK_CHUNK") as err:

@@ -1,12 +1,12 @@
 """The port's bulk plane build (K9) as a two-level partition: the plain
 versions of its wrappers in turn (the histogram tables, their scan, level 1
-per batch, level 2's slice counts and placing, bulk_apply_plain) against
+per batch, level 2 sorting each tile in place, bulk_apply_plain) against
 commet_tpu's bulk build (kernels.bulk_plane_sorted, bulk_scatter_set,
-bulk_or_plane) and against the single-level layout the design before it
-wrote (every entry appended to its 64 KiB slice's bin), at edge shapes,
-and the second entry buffer in the engine's memory checks. Exact equality
-throughout; a slice's entries are compared as a multiset (the kernels
-place them in the order their shared-memory atomics land)."""
+bulk_or_plane) and against the single-level layout of the first design
+(every entry appended to its 64 KiB slice's bin), at edge shapes, and the
+one entry buffer and level 2's table in the engine's memory checks. Exact
+equality throughout; a slice's entries are compared as a multiset (the
+kernels place them in the order their shared-memory atomics land)."""
 
 import numpy as np
 import pytest
@@ -76,6 +76,20 @@ def _single_level(batches, k):
     return entry[torch.argsort(fine, stable=True)].to(torch.int32), offsets
 
 
+def _slice_view(mid, table, counts, cstart, k):
+    """(bins, offsets) of the in-place layout in the single-level shape:
+    each fine bin's runs, tile by tile (level 2's table), concatenated in
+    bin order, slice-relative."""
+    sb = planes.bulk_layout(k)[0]
+    fine, first, n = planes.bulk_runs(table, cstart, k)
+    bins = torch.cat([torch.zeros(0, dtype=torch.int32)] + [
+        mid[int(first[r]):int(first[r] + n[r])]
+        for r in torch.argsort(fine, stable=True).tolist()])  # tiles in order
+    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return bins & ((1 << sb) - 1), offsets
+
+
 def _slices(bins, offsets):
     """Each entry keyed by its slice, sorted: the slices as multisets."""
     n = offsets[1:] - offsets[:-1]
@@ -85,14 +99,15 @@ def _slices(bins, offsets):
 
 def test_two_level_layout_matches_single_level():
     """At k = 21, 27 and 33, dirty and clean batches of 1-300 bp reads (more
-    than one histogram block a batch): the two-level chain's offsets equal
-    the single-level design's, and each slice holds the same entries."""
+    than one histogram block a batch): the fine counts of the two-level
+    chain equal the single-level design's, and each slice's runs, tile by
+    tile through level 2's table, hold the same entries."""
     rng = np.random.default_rng(70)
     for k in (21, 27, 33):
         batches = [_batch(encode(random_seqs(rng, 400, 1, 300, n_frac=f),
                                  lpad=320), f == 0.0) for f in (0.02, 0.0)]
         assert planes.bulk_blocks(batches[0][0]) == 2
-        bins, offsets = _two_level(batches, k)
+        bins, offsets = _slice_view(*_two_level(batches, k), k)
         want_bins, want_offsets = _single_level(batches, k)
         assert torch.equal(offsets, want_offsets)
         assert torch.equal(_slices(bins, offsets),
@@ -112,8 +127,8 @@ def test_two_level_edges():
         short = encode(random_seqs(rng, 30, 1, k - 1, n_frac=0.0), lpad=k + 8)
         empty = [_batch(short, True), _batch(np.full((5, k + 8), 4, np.uint8)),
                  _batch(np.full((7, max(1, k - 2)), 2, np.uint8), True)]
-        bins, offsets = _two_level(empty, k)
-        assert not offsets.any()
+        _mid, table, counts, _cstart = _two_level(empty, k)
+        assert not counts.any() and not table.any()
         assert not _wrappers_build(planes.alloc_planes(k, "cpu"), empty,
                                    k).any()
         long = encode(random_seqs(rng, 300, 250, 300, n_frac=0.01), lpad=320)
@@ -137,20 +152,27 @@ def test_two_level_edges():
 
 
 def test_workspace_counts_second_buffer(tmp_path, monkeypatch):
-    """bulk_workspace_bytes counts level 1's and level 2's entry buffers (32
-    B a window slot) beside each kept batch and its tables; with the
-    memory faked so that the planes and one buffer fit and the second does
-    not, Engine.build_planes raises its MemoryError before allocating and
-    build_resident_planes declines the set."""
+    """The second entry buffer is gone from the chunk workspace:
+    bulk_workspace_bytes counts one entry buffer (16 B a window slot,
+    level 2 sorting it in place) and level 2's table beside
+    each kept batch and its tables; with the memory faked so that the
+    planes and the buffer fit and the table does not, Engine.build_planes
+    raises its MemoryError before allocating and build_resident_planes
+    declines the set."""
     slots, upload = 65536 * 68, 65536 * 40
     chunk = 1 << 27
     n_batches = chunk // slots + 1
     work = planes.bulk_workspace_bytes(33, chunk, slots, upload, 65536)
+    # the table: 257 int16 slice starts a tile, at most ceil(entries /
+    # 16,384) + 256 tiles (about 17 MB at 31 batches)
+    table = 2 * 257 * (-(-4 * n_batches * slots // 16384) + 256)
+    assert table == 2 * planes.bulk_table_size(4 * n_batches * slots, 33)
+    assert 16e6 < table < 18e6
     # the tables: 31 batches x 256 blocks x 256 coarse bins x 20 B
-    assert work - n_batches * (32 * slots + upload) == (
-        n_batches * 256 * 256 * 20 + 3 * 8 * (4 * (1 << 14) + 1)
+    assert work - n_batches * (16 * slots + upload) == (
+        n_batches * 256 * 256 * 20 + table + 8 * 4 * (1 << 14)
         + 4 * 8 * 257)
-    assert work > 2 * 16 * chunk
+    assert 16 * chunk < work < 2 * 16 * chunk
     k = 15
     monkeypatch.setenv("COMMET_TPU_BULK_BUILD", "force")
     rs = read_set("I", _fasta(tmp_path, 8, n=100))
@@ -160,11 +182,16 @@ def test_workspace_counts_second_buffer(tmp_path, monkeypatch):
     chunk = eng.bulk_chunk()
     work = eng._bulk_bytes(enc, elig, chunk)
     batch_slots = 65536 * (96 - k + 1)  # 70 bp reads, lpad 96
-    one_buffer = work - (chunk // batch_slots + 1) * 16 * batch_slots
-    free = {"bytes": planes.plane_bytes(k) + one_buffer}
+    n_batches = chunk // batch_slots + 1
+    no_table = work - 2 * planes.bulk_table_size(4 * n_batches * batch_slots,
+                                                 k)
+    assert no_table > n_batches * 16 * batch_slots
+    free = {"bytes": planes.plane_bytes(k) + no_table}
     monkeypatch.setattr(eng, "_free_bytes", lambda dev=None: free["bytes"])
     with pytest.raises(MemoryError, match="chunk workspace"):
         eng.build_planes(enc, elig)
-    free["bytes"] = (planes.plane_bytes(k) + one_buffer
+    free["bytes"] = (planes.plane_bytes(k) + no_table
                      + tengine.PLANES_WORKSPACE_BYTES)
     assert eng.build_resident_planes(rs) is None
+    free["bytes"] += work - no_table
+    assert eng._planes_budget(None) >= planes.plane_bytes(k) + work

@@ -1,12 +1,12 @@
 """Card-only tests of the bulk plane build (K9): the kernels of
-csrc/planes.cu behind bulk_histogram, bulk_scatter (level 1),
-bulk_slice_counts and bulk_refine (level 2) and bulk_apply against their
-plain PyTorch versions on the card, BulkChunk against the per-batch
+csrc/planes.cu behind bulk_histogram, bulk_scatter (level 1), bulk_refine
+(level 2, an in-place sort of each tile by slice) and bulk_apply against
+their plain PyTorch versions on the card, BulkChunk against the per-batch
 build and bulk_build_planes_plain, and the engine's bulk route
 (COMMET_TPU_BULK_BUILD=force, small COMMET_TPU_BULK_CHUNK) against its
 per-batch route. Each skips without a CUDA card; exact equality throughout
-(a bin's entries are compared as a set: the kernel appends them in the
-order its shared-memory atomics land). Imports no JAX:
+(a bin's or a run's entries are compared as a set: the kernels place them
+in the order their shared-memory atomics land). Imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu_bulk.py
@@ -56,8 +56,7 @@ def _sorted_bins(bins, offsets):
     return torch.sort(b * (1 << 32) + bins[:b.numel()].to(torch.int64)).values
 
 
-WRAPPERS = ("bulk_histogram", "bulk_scatter", "bulk_slice_counts",
-            "bulk_refine", "bulk_apply")
+WRAPPERS = ("bulk_histogram", "bulk_scatter", "bulk_refine", "bulk_apply")
 
 
 @pytest.mark.gpu
@@ -65,12 +64,12 @@ WRAPPERS = ("bulk_histogram", "bulk_scatter", "bulk_slice_counts",
 def test_bulk_kernels_match_plain_on_card(cuda_device, k):
     """Per batch the histogram kernel gives the plain table; level 1's
     kernel fills each coarse bin of its buffer with the plain version's
-    entries; level 2's counting kernel gives the plain fine counts and its
-    placing kernel fills each fine bin with the plain version's entries,
-    every cursor ending at the next bin's offset; the apply kernel sets the
-    plain version's bits on a set already holding bits; a BulkChunk over
-    the batches equals the per-batch kernel build and
-    bulk_build_planes_plain. Each wrapper counts its launches."""
+    entries; level 2's kernel, sorting each tile in place, gives the plain
+    version's table and fine counts and each (tile, slice) run the plain
+    version's entries; the apply kernel sets the plain version's bits on a
+    set already holding bits; a BulkChunk over the batches equals the
+    per-batch kernel build and bulk_build_planes_plain. Each wrapper counts
+    its launches."""
     rng = np.random.default_rng(80 + k)
     batches = _batches(rng, k, cuda_device)
     _sb, _sw, ns, _rb = planes.bulk_layout(k)
@@ -91,27 +90,27 @@ def test_bulk_kernels_match_plain_on_card(cuda_device, k):
         row0 += planes.bulk_blocks(bt[0])
     assert torch.equal(_sorted_bins(got_mid, cstart),
                        _sorted_bins(want_mid, cstart))
-    counts = planes.bulk_slice_counts(
-        torch.zeros(4 * ns, dtype=torch.int64, device=cuda_device), got_mid,
-        cstart, k)
-    assert torch.equal(counts, planes.bulk_slice_counts_plain(got_mid,
-                                                              cstart, k))
-    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=cuda_device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    got_bins, want_bins = torch.full_like(got_mid, -1), torch.full_like(
-        got_mid, -1)
-    got_cur, want_cur = offsets[:-1].clone(), offsets[:-1].clone()
-    planes.bulk_refine(got_bins, got_cur, got_mid, cstart, k)
-    planes.bulk_refine_plain(want_bins, want_cur, got_mid, cstart, k)
+    want_mid = got_mid.clone()
+    got_table, want_table = (planes.bulk_table(got_mid, k) for _ in range(2))
+    got_counts, want_counts = (torch.zeros(4 * ns, dtype=torch.int64,
+                                           device=cuda_device)
+                               for _ in range(2))
+    planes.bulk_refine(got_mid, got_table, got_counts, cstart, k)
+    planes.bulk_refine_plain(want_mid, want_table, want_counts, cstart, k)
     torch.cuda.synchronize()
-    assert torch.equal(got_cur, offsets[1:])
-    assert torch.equal(want_cur, offsets[1:])
-    assert torch.equal(_sorted_bins(got_bins, offsets),
-                       _sorted_bins(want_bins, offsets))
+    assert torch.equal(got_table, want_table)
+    assert torch.equal(got_counts, want_counts)
+    runs = torch.cat([planes.bulk_runs(got_table, cstart, k)[1],
+                      cstart[-1:]])
+    assert torch.equal(_sorted_bins(got_mid, runs),
+                       _sorted_bins(want_mid, runs))
+    assert torch.equal(got_mid[int(cstart[-1]):], want_mid[int(cstart[-1]):])
     base = planes.alloc_planes(k, cuda_device)
     planes.build_planes(base, *batches[0], k)  # bits already set
-    got = planes.bulk_apply(base.clone(), got_bins, offsets, k)
-    want = planes.bulk_apply_plain(base.clone(), got_bins, offsets, k)
+    got = planes.bulk_apply(base.clone(), got_mid, got_table, got_counts,
+                            cstart, k)
+    want = planes.bulk_apply_plain(base.clone(), got_mid, got_table,
+                                   got_counts, cstart, k)
     assert torch.equal(got, want)
     per_batch = planes.alloc_planes(k, cuda_device)
     for bt in batches:
@@ -124,7 +123,7 @@ def test_bulk_kernels_match_plain_on_card(cuda_device, k):
     torch.cuda.synchronize()
     assert torch.equal(bulk, per_batch) and torch.equal(plain, per_batch)
     assert [getattr(planes, name).launches - n
-            for name, n in zip(WRAPPERS, launched)] == [8, 8, 2, 2, 2]
+            for name, n in zip(WRAPPERS, launched)] == [8, 8, 2, 2]
 
 
 @pytest.mark.gpu
@@ -162,8 +161,8 @@ def test_bulk_engine_cuda_matches_per_batch(tmp_path, monkeypatch,
 
 @pytest.mark.gpu
 def test_bulk_kernels_reject_bad_inputs(cuda_device):
-    """The wrappers raise on starts, cstart, counts, cursors, offsets or
-    buffers of the wrong type, size or device, or rows past the starts,
+    """The wrappers raise on starts, cstart, counts, tables, buffers or
+    planes of the wrong type, size or device, or rows past the starts,
     before launching."""
     k = 15
     rng = np.random.default_rng(91)
@@ -175,8 +174,8 @@ def test_bulk_kernels_reject_bad_inputs(cuda_device):
     cstart = torch.zeros(nbins + 1, dtype=torch.int64, device=cuda_device)
     good = torch.zeros(4 * ns, dtype=torch.int64, device=cuda_device)
     mid = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    table = planes.bulk_table(mid, k)
     pl = planes.alloc_planes(k, cuda_device)
-    offsets = torch.zeros(4 * ns + 1, dtype=torch.int64, device=cuda_device)
     launched = [getattr(planes, name).launches for name in WRAPPERS]
     for bad in (starts.to(torch.int32), starts[:-1], starts.cpu(),
                 starts.t()):
@@ -189,18 +188,25 @@ def test_bulk_kernels_reject_bad_inputs(cuda_device):
                             length, k)
     for bad in (good.to(torch.int32), good[:-1], good.cpu()):
         with pytest.raises(ValueError):
-            planes.bulk_slice_counts(bad, mid, cstart, k)
+            planes.bulk_refine(mid, table, bad, cstart, k)
         with pytest.raises(ValueError):
-            planes.bulk_refine(mid.clone(), bad, mid, cstart, k)
+            planes.bulk_apply(pl, mid, table, bad, cstart, k)
     for bad in (cstart[:-1], cstart.to(torch.int32), cstart.cpu()):
         with pytest.raises(ValueError):
-            planes.bulk_slice_counts(good, mid, bad, k)
+            planes.bulk_refine(mid, table, good, bad, k)
         with pytest.raises(ValueError):
-            planes.bulk_refine(mid.clone(), good, mid, bad, k)
+            planes.bulk_apply(pl, mid, table, good, bad, k)
+    for bad in (table[:-1], table.to(torch.int32), table.cpu(),
+                table.view(1, -1)):
+        with pytest.raises(ValueError):
+            planes.bulk_refine(mid, bad, good, cstart, k)
+        with pytest.raises(ValueError):
+            planes.bulk_apply(pl, mid, bad, good, cstart, k)
+    for bad in (mid.to(torch.int64), mid.cpu(), mid.view(4, 4)):
+        with pytest.raises(ValueError):
+            planes.bulk_refine(bad, table, good, cstart, k)
     with pytest.raises(ValueError):
         planes.bulk_histogram(c2, aux[:-1], clean, length, k)
     with pytest.raises(ValueError):
-        planes.bulk_apply(pl, mid, offsets[:-1], k)
-    with pytest.raises(ValueError):
-        planes.bulk_apply(pl[:-1], mid, offsets, k)
+        planes.bulk_apply(pl[:-1], mid, table, good, cstart, k)
     assert [getattr(planes, name).launches for name in WRAPPERS] == launched
