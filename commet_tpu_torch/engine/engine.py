@@ -44,8 +44,11 @@ replace the STREAM_BATCH cap of the stream probe, the plane probe and the
 index builds (the memory clamps still apply on top); ``COMMET_TPU_PREFETCH=0``
 makes each host batch inline, without the prefetch thread; and
 ``COMMET_TPU_PROFILE=<dir>`` (read at each call, as commet_tpu reads it)
-runs every ``index_and_search`` call under ``torch.profiler`` and writes one
-Chrome trace per call into ``<dir>``. ``COMMET_TPU_BULK_BUILD`` picks the
+runs every public call (``index_and_search``, ``build_resident``,
+``build_resident_planes``, ``search_multi_set``,
+``search_multi_set_planes``) under ``torch.profiler`` and writes one Chrome
+trace per call into ``<dir>``, with the engine's spans (trace.py) on their
+own threads beside the card's work. ``COMMET_TPU_BULK_BUILD`` picks the
 dense-plane build: ``0`` the per-batch build (planes.build_planes), ``force``
 the bulk build (planes.BulkChunk; on the CPU its plain version), unset or
 ``1`` on the card the route CARD_BULK_BUILD names and on the CPU the
@@ -61,11 +64,23 @@ every partition's planes on the word axis (no sorted index) and probes the
 whole batch on every shard. The amortized schedule declines with a mesh, so
 the driver takes the classic rounds, as commet_tpu's does.
 
+Spans (trace.py), recorded while ``torch.profiler`` runs: ``call.<name>``
+around each public call; ``host.pack`` (attribute ``reads``) around each
+host batch, on the prefetch thread, with ``host.gather`` and, on the card,
+``host.pin`` inside it; ``host.wait`` where the dispatch loop waits for a
+batch; ``search.select`` (the candidates and their lengths), ``search.fetch``
+(the verdicts' copies to the host) and ``search.finish`` (counters, tags and
+files) around a search's batch loop; ``build.count`` and ``build.partition``
+(count_kmers, partitions); ``io.write`` (the .bv and .log files).
+``host.pack``, ``host.wait`` and ``search.fetch`` are the blocks that
+``last_io_stats`` sums.
+
 There is no CPU fallback: the engine runs on the device it is given.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
 import time
@@ -76,6 +91,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from commet_tpu_torch import trace
 from commet_tpu_torch.core import keys, planes, stream
 from commet_tpu_torch.device import resolve_device, synchronize
 from commet_tpu_torch.io.reads import ReadSet
@@ -188,6 +204,45 @@ def batch_switch(name: str) -> int:
 def _pad_length(lmax: int, k: int) -> int:
     lmax = max(lmax, k)
     return -(-lmax // LENGTH_BUCKET) * LENGTH_BUCKET
+
+
+def _public(fn):
+    """An Engine call with a span ``call.<name>`` of its own; with
+    COMMET_TPU_PROFILE=<dir> (read at each call) run under torch.profiler
+    (CPU activity, and the card's on CUDA), which records the engine's
+    spans, the Chrome trace written into <dir> (``last_trace``) with the
+    spans of the threads the profiler does not follow added, as commet_tpu
+    wraps its calls in jax.profiler.trace."""
+    name = "call." + fn.__name__
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        profile_dir = os.environ.get("COMMET_TPU_PROFILE")
+        if not profile_dir:
+            with trace.span(name):
+                return fn(self, *args, **kwargs)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        trace.clear()
+        try:
+            with torch.profiler.profile(activities=activities) as prof:
+                with trace.span(name):
+                    out = fn(self, *args, **kwargs)
+                synchronize(self.device)
+        finally:
+            spans = trace.recorded()
+            trace.clear()
+        fd, path = tempfile.mkstemp(prefix=fn.__name__ + "_",
+                                    suffix=".pt.trace.json", dir=profile_dir)
+        os.close(fd)
+        prof.export_chrome_trace(path)
+        trace.to_chrome(path, spans)
+        self.last_trace = path
+        return out
+
+    return call
 
 
 def _native():
@@ -342,23 +397,26 @@ class Engine:
         self.bulk_off = bulk == "0"
         chunk = os.environ.get("COMMET_TPU_BULK_CHUNK")
         self.bulk_chunk_set = None if chunk is None else int(chunk)
-        # the Chrome trace of the last profiled index_and_search call
+        # the Chrome trace of the last profiled public call
         self.last_trace: Optional[str] = None
-        # host-IO accounting of the last search call: total gather+pack
-        # work (prefetch thread), time the dispatch loop waited for a batch,
-        # time spent fetching verdicts
+        # host-IO accounting of the last search or resident build: total
+        # gather+pack work (prefetch thread), time the dispatch loop waited
+        # for a batch, time spent fetching verdicts (0 in a build)
         self.last_io_stats: Dict[str, float] = {}
         self._io_pack = self._io_block = 0.0
         self._io_t0 = 0.0
 
     # ---------------------------------------------------------------- host
     def _host_batch(self, enc: EncodedSet, idx: np.ndarray, lpad: int):
-        t0 = time.time()
-        c2, vd, ln, clean = enc.gather_packed(idx, lpad)
-        batch = [keys.host_u32(c2), keys.host_u32(vd), torch.from_numpy(ln)]
-        if self.device.type == "cuda":
-            batch = [x.pin_memory() for x in batch]
-        self._io_pack += time.time() - t0
+        with trace.clocked("host.pack", reads=len(idx)) as pack:
+            with trace.span("host.gather"):
+                c2, vd, ln, clean = enc.gather_packed(idx, lpad)
+            batch = [keys.host_u32(c2), keys.host_u32(vd),
+                     torch.from_numpy(ln)]
+            if self.device.type == "cuda":
+                with trace.span("host.pin"):
+                    batch = [x.pin_memory() for x in batch]
+        self._io_pack += pack.seconds
         return batch + [clean]
 
     def _batched_packed(self, enc: EncodedSet, idx: np.ndarray, lpad: int,
@@ -367,27 +425,29 @@ class Engine:
         at most ``size`` reads. The next batch's gather+pack runs on a
         background thread while the caller works on the current one (the
         native assembler releases the GIL); with prefetch off each batch is
-        made inline, its pack counted as time the dispatch loop waited."""
+        made inline, its pack counted as time the dispatch loop waited.
+        Each pack runs under the span open where the batches are asked
+        for."""
         starts = list(range(0, len(idx), size))
+        pack = trace.carry(self._host_batch)
         if not self.prefetch:
             for start in starts:
-                t0 = time.time()
-                cur = self._host_batch(enc, idx[start:start + size], lpad)
-                self._io_block += time.time() - t0
+                with trace.clocked("host.wait") as wait:
+                    cur = pack(enc, idx[start:start + size], lpad)
+                self._io_block += wait.seconds
                 yield (slice(start, min(start + size, len(idx))), *cur)
             return
         if not starts:
             return
         with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(self._host_batch, enc, idx[:size], lpad)
+            fut = ex.submit(pack, enc, idx[:size], lpad)
             for i, start in enumerate(starts):
-                t0 = time.time()
-                cur = fut.result()
-                self._io_block += time.time() - t0
+                with trace.clocked("host.wait") as wait:
+                    cur = fut.result()
+                self._io_block += wait.seconds
                 if i + 1 < len(starts):
                     nxt = starts[i + 1]
-                    fut = ex.submit(self._host_batch, enc,
-                                    idx[nxt:nxt + size], lpad)
+                    fut = ex.submit(pack, enc, idx[nxt:nxt + size], lpad)
                 yield (slice(start, min(start + size, len(idx))), *cur)
 
     def _up(self, x: torch.Tensor) -> torch.Tensor:
@@ -410,12 +470,13 @@ class Engine:
         """Per-read complete-window counts for the partitioning cursor."""
         native = _native()
         out = np.zeros(len(idx), dtype=np.int64)
-        for fi in range(len(enc.flat_codes)):
-            rows = np.nonzero(idx[:, 0] == fi)[0]
-            if len(rows):
-                out[rows] = native.count_kmers(
-                    enc.flat_codes[fi], enc.offsets[fi], enc.lengths[fi],
-                    idx[rows, 1], self.k)
+        with trace.span("build.count"):
+            for fi in range(len(enc.flat_codes)):
+                rows = np.nonzero(idx[:, 0] == fi)[0]
+                if len(rows):
+                    out[rows] = native.count_kmers(
+                        enc.flat_codes[fi], enc.offsets[fi], enc.lengths[fi],
+                        idx[rows, 1], self.k)
         return out
 
     def partitions(self, kmer_counts: np.ndarray) -> List[np.ndarray]:
@@ -424,32 +485,34 @@ class Engine:
         cumulative k-mer count is < max_kmer; the first read fetched at or
         past the cap is consumed but never indexed
         (index_reads.h:49-61, index_and_search.cpp:255-277)."""
-        n = len(kmer_counts)
-        parts: List[np.ndarray] = []
-        cursor = 0
-        seen = 0
-        while seen < n:  # outer loop: get_reads_count() < nb_reads_to_index
-            nb = 0
-            members = []
-            seen += 1  # first fetch of this index_reads call
-            if cursor >= n:
-                break
-            r = cursor
-            cursor += 1
-            while True:
-                if nb >= self.max_kmer:
-                    break  # read r is consumed but NOT indexed (dropped)
-                members.append(r)
-                nb += int(kmer_counts[r])
-                seen += 1
+        with trace.span("build.partition"):
+            n = len(kmer_counts)
+            parts: List[np.ndarray] = []
+            cursor = 0
+            seen = 0
+            # outer loop: get_reads_count() < nb_reads_to_index
+            while seen < n:
+                nb = 0
+                members = []
+                seen += 1  # first fetch of this index_reads call
                 if cursor >= n:
-                    r = None
                     break
                 r = cursor
                 cursor += 1
-            parts.append(np.array(members, dtype=np.int64))
-            if r is None:
-                break
+                while True:
+                    if nb >= self.max_kmer:
+                        break  # read r is consumed but NOT indexed (dropped)
+                    members.append(r)
+                    nb += int(kmer_counts[r])
+                    seen += 1
+                    if cursor >= n:
+                        r = None
+                        break
+                    r = cursor
+                    cursor += 1
+                parts.append(np.array(members, dtype=np.int64))
+                if r is None:
+                    break
         return parts
 
     # ---------------------------------------------------------------- index
@@ -636,7 +699,8 @@ class Engine:
         (_search_planes). Replicas over a mesh (dp) or plane shards: the
         same through parallel/sharded.py."""
         tags = np.zeros(len(idx), dtype=bool)
-        lmax = int(enc.read_lengths(idx).max(initial=1))
+        with trace.span("search.select"):
+            lmax = int(enc.read_lengths(idx).max(initial=1))
         lpad = _pad_length(lmax, self.k)
         wmax = max(1, lmax - self.k + 1)
         if not (isinstance(sidx, stream.StreamIndex)
@@ -663,13 +727,13 @@ class Engine:
                     wmax)
             pending.append((sl, verdict))
         amb_parts = []
-        t_fetch = time.time()
-        for sl, verdict in pending:
-            got = verdict.cpu().numpy()
-            tags[sl] = got == stream.VERDICT_TAGGED
-            amb_parts.append(np.arange(sl.start, sl.stop)[
-                got == stream.VERDICT_AMBIG])
-        self._io_stash(time.time() - t_fetch)
+        with trace.clocked("search.fetch") as fetch:
+            for sl, verdict in pending:
+                got = verdict.cpu().numpy()
+                tags[sl] = got == stream.VERDICT_TAGGED
+                amb_parts.append(np.arange(sl.start, sl.stop)[
+                    got == stream.VERDICT_AMBIG])
+        self._io_stash(fetch.seconds)
         amb = (np.concatenate(amb_parts) if amb_parts
                else np.zeros(0, dtype=np.int64))
         if len(amb):
@@ -699,10 +763,10 @@ class Engine:
                 got = planes.probe_planes(pl, self._up(c2), self._up(aux),
                                           clean, lpad, self.k, self.t, wmax)
             pending.append((sl, got))
-        t_fetch = time.time()
-        for sl, got in pending:
-            tags[sl] = got.cpu().numpy()
-        self._io_stash(time.time() - t_fetch)
+        with trace.clocked("search.fetch") as fetch:
+            for sl, got in pending:
+                tags[sl] = got.cpu().numpy()
+        self._io_stash(fetch.seconds)
         return tags
 
     def _search_stream_fallback(self, sidx, enc: EncodedSet,
@@ -730,6 +794,7 @@ class Engine:
         return tags
 
     # ------------------------------------------------------------ main flow
+    @_public
     def index_and_search(self, index_set: ReadSet, query_sets: List[ReadSet],
                          out_dir: Optional[str] = None,
                          log_dir: Optional[str] = None,
@@ -739,35 +804,11 @@ class Engine:
         classify every query set with found-read skipping; then write the
         per-file result .bv's and the per-pair logs. Returns {query name:
         {indexed, searched, shared, index_time, search_time,
-        total_time}}. With COMMET_TPU_PROFILE=<dir> the call runs under
-        torch.profiler (CPU activity, and the card's on CUDA) and writes a
-        Chrome trace of its own into <dir> (``last_trace``), as commet_tpu
-        wraps the same call in jax.profiler.trace."""
-        profile_dir = os.environ.get("COMMET_TPU_PROFILE")
-        if not profile_dir:
-            return self._index_and_search(index_set, query_sets, out_dir,
-                                          log_dir, save)
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        os.makedirs(profile_dir, exist_ok=True)
-        with torch.profiler.profile(activities=activities) as prof:
-            out = self._index_and_search(index_set, query_sets, out_dir,
-                                         log_dir, save)
-            synchronize(self.device)
-        fd, path = tempfile.mkstemp(prefix="index_and_search_",
-                                    suffix=".pt.trace.json", dir=profile_dir)
-        os.close(fd)
-        prof.export_chrome_trace(path)
-        self.last_trace = path
-        return out
-
-    def _index_and_search(self, index_set: ReadSet, query_sets: List[ReadSet],
-                          out_dir: Optional[str], log_dir: Optional[str],
-                          save: bool) -> Dict[str, Dict[str, float]]:
+        total_time}}."""
         t_start = time.time()
         enc_index = EncodedSet(index_set)
-        enc_queries = [EncodedSet(q) for q in query_sets]
+        with trace.span("search.select"):
+            enc_queries = [EncodedSet(q) for q in query_sets]
         elig = index_set.eligible()
         kcounts = (self.count_kmers(enc_index, elig) if len(elig)
                    else np.zeros(0, dtype=np.int64))
@@ -791,7 +832,8 @@ class Engine:
             nb_indexed += len(part)
             for qi, (q, enc_q) in enumerate(zip(query_sets, enc_queries)):
                 t0 = time.time()
-                cand = q.untagged_eligible()
+                with trace.span("search.select"):
+                    cand = q.untagged_eligible()
                 searched_last[qi] = len(cand)
                 if len(cand):
                     hit = cand[self.search_set(sidx, enc_q, cand)]
@@ -801,20 +843,21 @@ class Engine:
                 search_times[qi] += time.time() - t0
 
         counters = {}
-        for qi, q in enumerate(query_sets):
-            counters[q.name] = {
-                "indexed": nb_indexed,
-                "searched": searched_last[qi],
-                "shared": found_tot[qi],
-                "index_time": index_time,
-                "search_time": search_times[qi],
-                "total_time": time.time() - t_start,
-            }
-            if log_dir is not None:
-                self._write_log(log_dir, q.name, index_set.name,
-                                counters[q.name])
-            if save and out_dir is not None:
-                q.save_result_bvs(out_dir, index_set.name)
+        with trace.span("search.finish"):
+            for qi, q in enumerate(query_sets):
+                counters[q.name] = {
+                    "indexed": nb_indexed,
+                    "searched": searched_last[qi],
+                    "shared": found_tot[qi],
+                    "index_time": index_time,
+                    "search_time": search_times[qi],
+                    "total_time": time.time() - t_start,
+                }
+                if log_dir is not None:
+                    self._write_log(log_dir, q.name, index_set.name,
+                                    counters[q.name])
+                if save and out_dir is not None:
+                    q.save_result_bvs(out_dir, index_set.name)
         return counters
 
     # ------------------------------------------- amortized all-vs-all step 0
@@ -833,6 +876,7 @@ class Engine:
                           - STREAM_BATCH_BYTES)
         return min(limits, default=float("inf"))
 
+    @_public
     def build_resident(self, index_set: ReadSet,
                        budget: Optional[float] = None
                        ) -> Optional[ResidentIndex]:
@@ -842,11 +886,12 @@ class Engine:
         the resident bytes
         (INDEX_BYTES_PER_KMER per k-mer) exceed _resident_budget or a
         partition is above the fill gate (serves_sorted); the caller then
-        takes the plane cohorts or the pairwise schedule. Counterpart of
-        build_resident."""
+        takes the plane cohorts or the pairwise schedule. Fills
+        last_io_stats (fetch_s 0). Counterpart of build_resident."""
         if self.mesh is not None or self.k > RESIDENT_MAX_K:
             return None
         t0 = time.time()
+        self._io_reset()
         enc = EncodedSet(index_set)
         elig = index_set.eligible()
         kcounts = (self.count_kmers(enc, elig) if len(elig)
@@ -860,10 +905,12 @@ class Engine:
         sxs = [self.build_index(enc, elig[part], int(kcounts[part].sum()))
                for part in parts]
         synchronize(self.device)
+        self._io_stash(0.0)
         return ResidentIndex(index_set.name, sxs,
                              int(sum(len(p) for p in parts)), total,
                              time.time() - t0)
 
+    @_public
     def search_multi_set(self, query_set: ReadSet,
                          residents: List[ResidentIndex],
                          out_dir: Optional[str] = None,
@@ -882,14 +929,17 @@ class Engine:
         so run_amortized_rounds runs the classic rounds. Counterpart of
         search_multi_set."""
         t_start = time.time()
-        enc_q = EncodedSet(query_set)
-        cand = query_set.untagged_eligible()
-        slots = [(ri, sx) for ri, r in enumerate(residents)
-                 for sx in r.partitions]
-        tags_slot = np.zeros((len(slots), len(cand)), dtype=bool)
+        with trace.span("search.select"):
+            enc_q = EncodedSet(query_set)
+            cand = query_set.untagged_eligible()
+            slots = [(ri, sx) for ri, r in enumerate(residents)
+                     for sx in r.partitions]
+            tags_slot = np.zeros((len(slots), len(cand)), dtype=bool)
+            work = len(cand) > 0 and len(slots) > 0
+            if work:
+                lmax = int(enc_q.read_lengths(cand).max(initial=1))
         fb_time = [0.0] * len(residents)  # per-resident exact-fallback time
-        if len(cand) and slots:
-            lmax = int(enc_q.read_lengths(cand).max(initial=1))
+        if work:
             lpad = _pad_length(lmax, self.k)
             wmax = max(1, lmax - self.k + 1)
             size = stream_batch_size(len(cand), wmax,
@@ -917,15 +967,15 @@ class Engine:
                             self.t, wmax)
                     pending.append((sl, v))
                 amb_slot = [[] for _ in group]
-                t_fetch = time.time()
-                for sl, v in pending:
-                    got = v.cpu().numpy()
-                    tags_slot[base:base + len(group), sl] = \
-                        got == stream.VERDICT_TAGGED
-                    for s in range(len(group)):
-                        amb_slot[s].append(np.arange(sl.start, sl.stop)[
-                            got[s] == stream.VERDICT_AMBIG])
-                fetch_s += time.time() - t_fetch
+                with trace.clocked("search.fetch") as fetch:
+                    for sl, v in pending:
+                        got = v.cpu().numpy()
+                        tags_slot[base:base + len(group), sl] = \
+                            got == stream.VERDICT_TAGGED
+                        for s in range(len(group)):
+                            amb_slot[s].append(np.arange(sl.start, sl.stop)[
+                                got[s] == stream.VERDICT_AMBIG])
+                fetch_s += fetch.seconds
                 for s, (ri, sx) in enumerate(group):
                     amb = np.concatenate(amb_slot[s])
                     if not len(amb):
@@ -948,6 +998,7 @@ class Engine:
             limits.append(self._free_bytes() - PLANES_WORKSPACE_BYTES)
         return min(limits, default=float("inf"))
 
+    @_public
     def build_resident_planes(self, index_set: ReadSet,
                               budget: Optional[float] = None,
                               bulk_chunk: Optional[int] = None
@@ -957,11 +1008,12 @@ class Engine:
         ``bulk_chunk`` window slots, bulk_chunk() by default), for the plane
         cohorts. Returns None, before any device allocation, when the engine
         has a mesh or the plane bytes (plane_bytes(k) per partition) and the
-        bulk build's chunk workspace exceed _planes_budget. Counterpart of
-        build_resident_planes."""
+        bulk build's chunk workspace exceed _planes_budget. Fills
+        last_io_stats (fetch_s 0). Counterpart of build_resident_planes."""
         if self.mesh is not None:
             return None
         t0 = time.time()
+        self._io_reset()
         enc = EncodedSet(index_set)
         elig = index_set.eligible()
         kcounts = (self.count_kmers(enc, elig) if len(elig)
@@ -975,12 +1027,14 @@ class Engine:
             return None
         pls = [self.build_planes(enc, elig[part], chunk) for part in parts]
         synchronize(self.device)
+        self._io_stash(0.0)
         fills = [float(kcounts[part].sum()) / float(2 ** self.k)
                  for part in parts]
         return ResidentPlanes(index_set.name, pls, fills,
                               int(sum(len(p) for p in parts)),
                               int(kcounts.sum()), time.time() - t0)
 
+    @_public
     def search_multi_set_planes(self, query_set: ReadSet,
                                 residents: List[ResidentPlanes],
                                 out_dir: Optional[str] = None,
@@ -996,12 +1050,15 @@ class Engine:
         search_multi_set_planes, whose cascade rounds and exact fallback
         end in the tags this probe gives in one pass."""
         t_start = time.time()
-        enc_q = EncodedSet(query_set)
-        cand = query_set.untagged_eligible()
-        slots = [pl for r in residents for pl in r.partitions]
-        tags_slot = np.zeros((len(slots), len(cand)), dtype=bool)
-        if len(cand) and slots:
-            lmax = int(enc_q.read_lengths(cand).max(initial=1))
+        with trace.span("search.select"):
+            enc_q = EncodedSet(query_set)
+            cand = query_set.untagged_eligible()
+            slots = [pl for r in residents for pl in r.partitions]
+            tags_slot = np.zeros((len(slots), len(cand)), dtype=bool)
+            work = len(cand) > 0 and len(slots) > 0
+            if work:
+                lmax = int(enc_q.read_lengths(cand).max(initial=1))
+        if work:
             lpad = _pad_length(lmax, self.k)
             wmax = max(1, lmax - self.k + 1)
             size = row_batch_size(self.probe_batch, wmax)
@@ -1020,10 +1077,11 @@ class Engine:
                     else:
                         got = planes.probe_planes_multi(table, *args)
                     pending.append((sl, got))
-                t_fetch = time.time()
-                for sl, got in pending:
-                    tags_slot[base:base + len(group), sl] = got.cpu().numpy()
-                fetch_s += time.time() - t_fetch
+                with trace.clocked("search.fetch") as fetch:
+                    for sl, got in pending:
+                        tags_slot[base:base + len(group), sl] = \
+                            got.cpu().numpy()
+                fetch_s += fetch.seconds
             self._io_stash(fetch_s)
         return self._multi_finish(query_set, residents, cand, tags_slot,
                                   [0.0] * len(residents), t_start, out_dir,
@@ -1039,32 +1097,33 @@ class Engine:
         of the joint probe plus the resident's own fallback time. The query
         set's tags are shared across residents: each resident's are set,
         saved and cleared before the next. Counterpart of _multi_finish."""
-        joint = max(0.0, time.time() - t_start - sum(fb_time))
-        counters = {}
-        si = 0
-        for ri, r in enumerate(residents):
-            tr = tags_slot[si:si + len(r.partitions)]
-            si += len(r.partitions)
-            tags = tr.any(axis=0)
-            c = {
-                "indexed": r.nb_indexed,
-                "searched": (len(cand) - int(tr[:-1].any(axis=0).sum())
-                             if len(tr) else 0),
-                "shared": int(tags.sum()),
-                "index_time": r.build_seconds,
-                "search_time": joint / len(residents) + fb_time[ri],
-                "total_time": time.time() - t_start,
-            }
-            counters[r.name] = c
-            if log_dir is not None:
-                self._write_log(log_dir, query_set.name, r.name, c)
-            if save and out_dir is not None:
-                hit = cand[tags]
-                if len(hit):
-                    query_set.tag(hit[:, 0], hit[:, 1])
-                query_set.save_result_bvs(out_dir, r.name)
-                for bv in query_set.result_bvs:
-                    bv.set_all_false()
+        with trace.span("search.finish"):
+            joint = max(0.0, time.time() - t_start - sum(fb_time))
+            counters = {}
+            si = 0
+            for ri, r in enumerate(residents):
+                tr = tags_slot[si:si + len(r.partitions)]
+                si += len(r.partitions)
+                tags = tr.any(axis=0)
+                c = {
+                    "indexed": r.nb_indexed,
+                    "searched": (len(cand) - int(tr[:-1].any(axis=0).sum())
+                                 if len(tr) else 0),
+                    "shared": int(tags.sum()),
+                    "index_time": r.build_seconds,
+                    "search_time": joint / len(residents) + fb_time[ri],
+                    "total_time": time.time() - t_start,
+                }
+                counters[r.name] = c
+                if log_dir is not None:
+                    self._write_log(log_dir, query_set.name, r.name, c)
+                if save and out_dir is not None:
+                    hit = cand[tags]
+                    if len(hit):
+                        query_set.tag(hit[:, 0], hit[:, 1])
+                    query_set.save_result_bvs(out_dir, r.name)
+                    for bv in query_set.result_bvs:
+                        bv.set_all_false()
         return counters
 
     @staticmethod
@@ -1072,7 +1131,7 @@ class Engine:
         """Per-pair log in the reference's format
         (index_and_search.cpp:288-300)."""
         path = os.path.join(log_dir, f"{qname}_in_{iname}.log")
-        with open(path, "w") as f:
+        with trace.span("io.write"), open(path, "w") as f:
             f.write("Index  time: %g s\n" % c["index_time"])
             f.write("Search time: %g s\n" % c["search_time"])
             f.write("Total  time: %g s\n" % c["total_time"])

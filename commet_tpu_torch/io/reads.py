@@ -29,6 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from commet_tpu_torch import trace
 from commet_tpu_torch.io.bv import BitVector
 from commet_tpu_torch.native import parser as native
 
@@ -209,8 +210,9 @@ class ReadSet:
     def save_result_bvs(self, directory: str, suffix: str) -> None:
         """Write per-file result vectors as <dir>/<basename>_in_<suffix>.bv
         with comment '<path> in <suffix>' (file_manager.h:245-252)."""
-        for f, r in zip(self.files, self.result_bvs):
-            out = os.path.join(directory, basename(f.path) + "_in_" + suffix
-                               + ".bv")
-            r.comment = f.path + " in " + suffix
-            r.write(out)
+        with trace.span("io.write"):
+            for f, r in zip(self.files, self.result_bvs):
+                out = os.path.join(directory, basename(f.path) + "_in_"
+                                   + suffix + ".bv")
+                r.comment = f.path + " in " + suffix
+                r.write(out)

@@ -2,7 +2,7 @@
 commet_tpu's engine under the same environment on the same numpy-seeded
 fasta sets (less COMMET_TPU_PROFILE: the port's trace is what is tested):
 identical .bv bytes and .log counter lines. COMMET_TPU_PROFILE writes one
-Chrome trace per index_and_search call; COMMET_TPU_PREFETCH=0 makes no
+Chrome trace per public Engine call; COMMET_TPU_PREFETCH=0 makes no
 thread; COMMET_TPU_STREAM_BATCH, COMMET_TPU_PROBE_BATCH and
 COMMET_TPU_BUILD_BATCH set the reads per batch of their path; a value that
 is not an integer raises ValueError. Also the smoke's count of the plane
@@ -20,7 +20,7 @@ import torch
 import commet_tpu.engine.engine as jengine
 from commet_tpu_torch.core import keys, planes
 from commet_tpu_torch.engine import engine as tengine
-from torch_helpers import make_fastas, run_engine
+from torch_helpers import make_fastas, run_amortized, run_engine
 
 T = 2
 K = 21
@@ -52,28 +52,67 @@ def _batches(monkeypatch, eng):
     return seen
 
 
-def test_profile_writes_one_trace_per_call(tmp_path, monkeypatch):
-    """COMMET_TPU_PROFILE=<dir>: each index_and_search call writes a Chrome
-    trace of its own into <dir> (a second call adds a file), the bytes and
-    counter lines staying commet_tpu's."""
+PROFILED = {"index_and_search": ["index_and_search"],
+            "amortized": ["build_resident", "build_resident_planes",
+                          "search_multi_set", "search_multi_set_planes"]}
+
+
+def _profiled_calls(monkeypatch, calls, idx_fa, qry_fas, out):
+    """The outputs of ``calls`` and the engine that made them:
+    index_and_search, or the resident planes and then the sorted resident
+    (build_resident*, search_multi_set*) under COMMET_TPU_STREAM=0 and
+    =force."""
+    if calls == "index_and_search":
+        eng = tengine.Engine(k=K, t=T, device="cpu")
+        _c, got = run_engine(eng, idx_fa, qry_fas, out)
+        return [got], eng
+    got = []
+    for stream_mode, planes_route in (("0", True), ("force", False)):
+        monkeypatch.setenv("COMMET_TPU_STREAM", stream_mode)
+        eng = tengine.Engine(k=K, t=T, device="cpu")
+        got.append(run_amortized(eng, idx_fa, qry_fas,
+                                 f"{out}_{stream_mode}", planes_route))
+    return got, eng
+
+
+@pytest.mark.parametrize("calls", ["index_and_search", "amortized"])
+def test_profile_writes_one_trace_per_call(tmp_path, monkeypatch, calls):
+    """COMMET_TPU_PROFILE=<dir>: each public Engine call writes a Chrome
+    trace of its own into <dir> (a second call adds a file) that holds the
+    engine's spans, the call's on its own thread and the host packs, each
+    naming that call, on the prefetch thread's row, the bytes and counter
+    lines staying commet_tpu's; the amortized calls are
+    build_resident(_planes) and search_multi_set(_planes)."""
     monkeypatch.setenv("COMMET_TPU_STREAM", "0")
     idx_fa, qry_fas, _ = make_fastas(tmp_path, 91, K, 0.02)
     _c, want = _jax(monkeypatch, tmp_path, idx_fa, qry_fas)
     trace_dir = tmp_path / "traces"
     monkeypatch.setenv("COMMET_TPU_PROFILE", str(trace_dir))
-    eng = tengine.Engine(k=K, t=T, device="cpu")
-    _c, got = run_engine(eng, idx_fa, qry_fas, str(tmp_path / "torch"))
-    assert got == want
+    got, eng = _profiled_calls(monkeypatch, calls, idx_fa, qry_fas,
+                               str(tmp_path / "torch"))
+    assert got == [want] * len(got)
     traces = glob.glob(str(trace_dir / "*.json"))
-    assert traces == [eng.last_trace]
-    with open(eng.last_trace) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("ph") == "X" and "aten::" in e.get("name", "")
-               for e in events)
-    _c, again = run_engine(eng, idx_fa, qry_fas, str(tmp_path / "torch2"))
-    assert again == want
-    assert len(glob.glob(str(trace_dir / "*.json"))) == 2
-    assert eng.last_trace not in traces
+    assert eng.last_trace in traces
+    called = []
+    for path in traces:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("ph") == "X" and "aten::" in e.get("name", "")
+                   for e in events)
+        (call,) = [e for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("call.")]
+        called.append(call["name"][len("call."):])
+        assert os.path.basename(path).startswith(called[-1] + "_")
+        packs = [e for e in events if e.get("cat") == "program"
+                 and e["name"] == "host.pack"]
+        assert packs and all(e["tid"] != call["tid"] for e in packs)
+        assert all(e["args"]["parent"] == call["name"] for e in packs)
+    assert sorted(called) == PROFILED[calls]
+    if calls == "index_and_search":
+        _c, again = run_engine(eng, idx_fa, qry_fas, str(tmp_path / "two"))
+        assert again == want
+        assert len(glob.glob(str(trace_dir / "*.json"))) == 2
+        assert eng.last_trace not in traces
 
 
 def test_prefetch_off_makes_no_thread(tmp_path, monkeypatch):

@@ -128,6 +128,28 @@ def run_engine(engine, idx_fa, qry_fas, out):
                for qi, path in enumerate(qry_fas)]
     counters = engine.index_and_search(rs_i, queries, out_dir=out,
                                        log_dir=out)
+    return counters, outputs(out, qry_fas)
+
+
+def run_amortized(engine, idx_fa, qry_fas, out, planes=True):
+    """Index set "I" made resident through ``engine``
+    (build_resident_planes, or build_resident) and query sets "Q<i>"
+    searched against it one by one (search_multi_set_planes, or
+    search_multi_set); returns the outputs run_engine returns."""
+    os.makedirs(out, exist_ok=True)
+    build, search = ((engine.build_resident_planes,
+                      engine.search_multi_set_planes) if planes
+                     else (engine.build_resident, engine.search_multi_set))
+    resident = build(read_set("I", idx_fa, engine=engine))
+    for qi, path in enumerate(qry_fas):
+        search(read_set(f"Q{qi}", path, engine=engine), [resident],
+               out_dir=out, log_dir=out)
+    return outputs(out, qry_fas)
+
+
+def outputs(out, qry_fas):
+    """The result .bv bytes and .log counter lines that query sets "Q<i>"
+    of ``qry_fas`` against index set "I" wrote into ``out``."""
     blobs = {}
     for qi, path in enumerate(qry_fas):
         with open(os.path.join(out, os.path.basename(path) + "_in_I.bv"),
@@ -135,7 +157,7 @@ def run_engine(engine, idx_fa, qry_fas, out):
             blobs[path] = f.read()
         with open(os.path.join(out, f"Q{qi}_in_I.log")) as f:
             blobs[f"Q{qi}.log"] = f.read().splitlines()[-1]
-    return counters, blobs
+    return blobs
 
 
 def force_jax_stream(monkeypatch):
