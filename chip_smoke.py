@@ -8,13 +8,17 @@
     python3 chip_smoke.py --class-counts
     python3 chip_smoke.py --default-fill
     python3 chip_smoke.py --bulk-build
+    python3 chip_smoke.py --pack-kernel
 
 With --plane-kernels it runs phases 1, 2 and 9's timed part only, with
 --join-kernels phases 1, 2, 3 and 5's timed part only, with --mesh-kernels
 phases 1, 2 and 13.1's plane kernels, with --class-counts phases 1, 2 and
 13.1's class counts, with --default-fill phases 1, 2 and 14, with
 --bulk-build phases 1, 2 and 14's kernels at 11.6% fill (the atomic fill,
-the probes and the bulk build, without the CLI pair), and prints their
+the probes and the bulk build, without the CLI pair), with --pack-kernel
+phases 1, 2 and the gather and pack of a 65,536-read batch on the card
+(commet_gather_pack against the host's pack and its plain version, its
+ms, the host pack's and a pageable upload's rate), and prints their
 figures as one JSON line. To time two versions of the kernels in
 turns on one card, run it in a checkout of each in one command (order:
 other, this, this, other); --join-kernels needs of the package only
@@ -31,7 +35,8 @@ Phases, each printing one line with its seconds:
      commet_probe_planes_part, commet_bulk_hist, commet_bulk_scatter,
      commet_bulk_refine, commet_bulk_apply and, for measurement only,
      commet_bulk_decode and commet_store_runs; filter.cu:
-     commet_class_counts), one nvcc per source, started together;
+     commet_class_counts; pack.cu: commet_gather_pack), one nvcc per
+     source, started together;
   3. kernel: the join kernel against its plain PyTorch version on the card
      at the main path's shapes (a 64M-pair k=32 index, 9M queries: one
      65,536-read batch of 100 bp x 2 strands x 69 windows), sorted and
@@ -149,7 +154,12 @@ Phases, each printing one line with its seconds:
           filter; of 4M dirty reads made on the card equal to the plain
           version's; at both sizes the kernel's own ms from torch.profiler's
           device events beside the wrapper's ms a call (CUDA events), the
-          plain version's and the bound;
+          plain version's and the bound. The gather and pack
+          (commet_gather_pack) of the main paths' 65,536-read batches of
+          100 bp reads from a 1M-read set, rows in order and shuffled,
+          equal to the host's pack and to its plain version's on the card,
+          its ms timed as the class counts' are, beside the host pack's
+          and the bound, and the set's upload from pageable memory;
      13.2 (in phase 6's directory) set 2 against set 1 (1M reads, k = 32,
           sorted index) through Engine on the mesh (DP stream and DP exact)
           and alone: equal .bv bytes and counter line;
@@ -203,13 +213,15 @@ Phases, each printing one line with its seconds:
      printed beside the engine's card default.
 Each main path (phases 6, 10, 11, 14's CLI call and 12's --jobs run, 13.2
 to 13.4's runs, 13.1's filter) runs with every kernel's launch count set
-to 0 just before it and read just after; the kernels line (thirteen
-kernels) takes the plane kernels' launches from phase 10 (the per-batch
+to 0 just before it and read just after; the kernels line (fourteen
+kernels) takes the plane kernels' and the gather and pack's launches from
+phase 10 (the per-batch
 build's from 13.3's dp run when the bulk build is the card's default: a
 mesh never takes it), the ranged build's and the probe passes' from 13.3's
 plane-mode run and the class counts' from 13.1's filter_batch_device, the
 class counts' ms from torch.profiler at 65,536 reads and the bulk kernels'
-(per launch, CUDA events around their passes) from phase 14. At the end no module of
+(per launch, CUDA events around their passes) from phase 14 and the gather
+and pack's from 13.1's pack, rows in order. At the end no module of
 JAX or of the JAX package (commet_tpu) may be loaded.
 Then one JSON line with the kernels' figures and, last, the device line.
 Any failure raises; without a CUDA card, or without the repository beside
@@ -254,6 +266,9 @@ BULK_SCATTER_REPLACES = "commet_tpu/core/kernels.py:813"
 BULK_APPLY_REPLACES = "commet_tpu/core/kernels.py:823"
 FILTER_SOURCE = "commet_tpu_torch/core/csrc/filter.cu"
 CLASS_COUNTS_REPLACES = "commet_tpu/core/kernels.py:831"
+PACK_SOURCE = "commet_tpu_torch/core/csrc/pack.cu"
+# no TPU kernel: the JAX package gathers and packs each batch on the host
+PACK_REPLACES = "commet_tpu/engine/engine.py:170"
 # phase 13: mesh entries (word ranges, shares, key-range slices) and the
 # two ranks' time limit
 MESH_N = 4
@@ -2257,6 +2272,73 @@ def phase_class_counts(device, gen_seed: int) -> dict:
             "launches": launches}
 
 
+def phase_pack_kernel(device, seed: int) -> dict:
+    """The gather and pack on the card (pack.gather_pack, csrc/pack.cu) of
+    65,536-read batches of a 1M-read set of 100 bp reads (1% of the reads
+    with an N; a query set of the benchmark's partition-search), the rows
+    in order and shuffled: equal bit for bit to the host's pack
+    (native.gather_packed) and to the plain version run on the card. The
+    kernel's own ms (kernel_ms: torch.profiler's device time) and the
+    wrapper's ms a call (CUDA events around back-to-back calls), the plain
+    version's, the host pack's ms for the same batch, the bound (ids,
+    offsets, lengths and codes read once, the batch written once at the HBM
+    rate), and the set's upload from pageable memory into memory already
+    allocated on the card, after a first small copy, in GB/s."""
+    import torch
+    from commet_tpu_torch.core import pack
+    from commet_tpu_torch.native import parser as native
+    rng = np.random.default_rng(seed)
+    n_set, n, lpad = 1 << 20, PLANE_BATCH, 128
+    codes = rng.integers(0, 4, n_set * READ_LEN, dtype=np.uint8)
+    codes[rng.choice(n_set, n_set // 100, replace=False) * READ_LEN
+          + rng.integers(0, READ_LEN, n_set // 100)] = 4
+    offsets = np.arange(n_set + 1, dtype=np.int64) * READ_LEN
+    lengths = np.full(n_set, READ_LEN, dtype=np.int32)
+    dev_codes = torch.empty(len(codes), dtype=torch.uint8, device=device)
+    dev_codes[:1 << 20].copy_(torch.from_numpy(codes[:1 << 20]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_codes.copy_(torch.from_numpy(codes))
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    dev_off = torch.from_numpy(offsets[:-1]).to(device)
+    dev_len = torch.from_numpy(lengths).to(device)
+    figs = {}
+    for order in ("in_order", "shuffled"):
+        rows = (np.arange(n, dtype=np.int64) + n_set // 3 if order ==
+                "in_order" else rng.choice(n_set, n, replace=False))
+        ids = torch.from_numpy(rows).to(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            want = native.gather_packed(codes, offsets, lengths, rows, lpad)
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+        def call(ids=ids):
+            return pack.gather_pack(dev_codes, dev_off, dev_len, ids, lpad)
+
+        def plain(ids=ids):
+            return pack.gather_pack_plain(dev_codes, dev_off, dev_len, ids,
+                                          lpad)
+
+        got, ref = call(), plain()
+        for g, r, h in zip(got, ref, want[:3]):
+            if not torch.equal(g, r) or not np.array_equal(
+                    g.cpu().numpy().view(h.dtype), h):
+                raise AssertionError(f"gather_pack ({order}) differs from "
+                                     "its plain version or the host pack")
+        n_bytes = (n * READ_LEN + n * (8 + 8 + 4)
+                   + n * 4 * (lpad // 16 + lpad // 32 + 1))
+        figs[order] = {
+            "max_abs_err": 0,
+            "ms": kernel_ms(call, "gather_pack_kernel", 20),
+            "wrapper_ms": cuda_ms(call, 20),
+            "plain_ms": cuda_ms(plain, 3),
+            "host_ms": host_ms,
+            "bound_ms": bound_ms(n_bytes)}
+    return {**figs, "reads": n, "upload_GB_per_s": len(codes) / upload_s
+            / 1e9, "upload_bytes": len(codes)}
+
+
 def _class_counts_line(cc: dict) -> str:
     parts = []
     for key, reads in (("batch", PLANE_BATCH), ("large", cc["large_reads"])):
@@ -3352,12 +3434,14 @@ def phase_two_ranks(tmp: str, fof: str, classic: str, files, *flags):
 
 def _kernel_fns(stream, planes, tfilter):
     """Every kernel wrapper, in the kernels line's order."""
+    from commet_tpu_torch.core import pack
     return (stream.join_membership, stream.join_membership_multi,
             planes.build_planes, planes.probe_planes,
             planes.probe_planes_multi, planes.build_planes_range,
             planes.probe_planes_part_a, planes.probe_planes_part,
             tfilter.class_counts_packed, planes.bulk_histogram,
-            planes.bulk_scatter, planes.bulk_refine, planes.bulk_apply)
+            planes.bulk_scatter, planes.bulk_refine, planes.bulk_apply,
+            pack.gather_pack)
 
 
 def zero_counts(stream, planes):
@@ -3485,6 +3569,26 @@ def run_phase_class_counts(device) -> dict:
     return cc
 
 
+def run_phase_pack_kernel(device) -> dict:
+    """Phase 13.1's gather and pack: runs phase_pack_kernel and logs its
+    line."""
+    t0 = time.perf_counter()
+    gp = phase_pack_kernel(device, 18)
+    log(f"phase 13.1 pack: {gp['reads']}-read batches of {READ_LEN} bp "
+        f"gathered and packed on the card equal to the host's pack and to "
+        f"the plain version's; "
+        + "; ".join(f"{order} kernel {gp[order]['ms']:.4f} ms, wrapper "
+                    f"{gp[order]['wrapper_ms']:.4f} ms, plain "
+                    f"{gp[order]['plain_ms']:.4f} ms, host pack "
+                    f"{gp[order]['host_ms']:.3f} ms, bound "
+                    f"{gp[order]['bound_ms']:.4f} ms"
+                    for order in ("in_order", "shuffled"))
+        + f"; {gp['upload_bytes']} B uploaded from pageable memory at "
+        f"{gp['upload_GB_per_s']:.2f} GB/s "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return gp
+
+
 def _mesh_walls(pair: dict) -> str:
     """Each run's wall, peak bytes and kernel launches (phase_mesh_pair)."""
     return "; ".join(f"{name} {wall:.3f} s, max_memory_allocated {peak} B, "
@@ -3556,12 +3660,14 @@ def main(argv=None) -> int:
     class_counts_only = args == ["--class-counts"]
     default_fill_only = args == ["--default-fill"]
     bulk_build_only = args == ["--bulk-build"]
+    pack_kernel_only = args == ["--pack-kernel"]
     if args and not (plane_kernels_only or join_kernels_only
                      or mesh_kernels_only or class_counts_only
-                     or default_fill_only or bulk_build_only):
+                     or default_fill_only or bulk_build_only
+                     or pack_kernel_only):
         print("usage: chip_smoke.py [--plane-kernels | --join-kernels | "
               "--mesh-kernels | --class-counts | --default-fill | "
-              "--bulk-build]", file=sys.stderr)
+              "--bulk-build | --pack-kernel]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "commet_tpu_torch")):
@@ -3574,7 +3680,7 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from commet_tpu_torch.core import _cuda, planes, stream
+    from commet_tpu_torch.core import _cuda, pack, planes, stream
     from commet_tpu_torch.core import filter as tfilter
     from commet_tpu_torch.device import resolve_device
 
@@ -3621,6 +3727,10 @@ def main(argv=None) -> int:
         fk = run_phase_default_fill_kernels(device, time.perf_counter())
         log(json.dumps({key: fk[key] for key in ("fill_ms", "build",
                                                  "bulk")}))
+        return 0
+
+    if pack_kernel_only:
+        log(json.dumps(phase_pack_kernel(device, 18)))
         return 0
 
     if class_counts_only:
@@ -3673,16 +3783,19 @@ def main(argv=None) -> int:
         launches = stream.join_membership.launches
         launches_multi = stream.join_membership_multi.launches
         stream_planes = _plane_launches(planes)
-        if launches == 0 or launches_multi == 0:
-            raise AssertionError(f"the main path launched join {launches} "
-                                 f"and join_multi {launches_multi} times")
+        packs = pack.gather_pack.launches
+        if launches == 0 or launches_multi == 0 or packs == 0:
+            raise AssertionError(f"the main path launched join {launches}, "
+                                 f"join_multi {launches_multi} and "
+                                 f"gather_pack {packs} times")
         for what, secs in calls:
             log(f"  {what}: {secs:.3f} s")
         log(f"phase main path: commet -k {K} -t {T} on 4 x {SET_READS} "
             f"reads, amortized schedule, S up to {s_max}, matrix_plain rows "
             f"{plain.tolist()}, join launches {launches}, join_multi "
             f"launches {launches_multi}, plane kernel launches "
-            f"{stream_planes}, max_memory_allocated {peak} B "
+            f"{stream_planes}, gather_pack launches {packs}, "
+            f"max_memory_allocated {peak} B "
             f"({time.perf_counter() - t0:.3f} s)")
         torch.cuda.empty_cache()
         mesh = smoke_mesh(device, MESH_N)
@@ -3788,6 +3901,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cc = run_phase_class_counts(device)
     torch.cuda.empty_cache()
+    gp = run_phase_pack_kernel(device)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
@@ -3799,10 +3914,11 @@ def main(argv=None) -> int:
         plane_counts = _plane_launches(planes)
         main_planes = {fn.__name__: fn.launches for fn in _kernel_fns(
             stream, planes, tfilter)}
-        if min(plane_counts) == 0:
+        if min(plane_counts) == 0 or main_planes["gather_pack"] == 0:
             raise AssertionError(f"the planes main path launched "
                                  f"{_plane_names(planes)} {plane_counts} "
-                                 "times")
+                                 f"and gather_pack "
+                                 f"{main_planes['gather_pack']} times")
         for what, secs in calls:
             log(f"  {what}: {secs:.3f} s")
         log(f"phase planes main path: commet -k {PLANE_K} -t {T} on 4 x "
@@ -3810,7 +3926,8 @@ def main(argv=None) -> int:
             f"matrix_plain rows {plain.tolist()}, {_plane_names(planes)} "
             f"launches {plane_counts}, join/join_multi "
             f"launches {stream.join_membership.launches}/"
-            f"{stream.join_membership_multi.launches}, max_memory_allocated "
+            f"{stream.join_membership_multi.launches}, gather_pack launches "
+            f"{main_planes['gather_pack']}, max_memory_allocated "
             f"{peak} B ({time.perf_counter() - t0:.3f} s)")
         torch.cuda.empty_cache()
         zero_counts(stream, planes)
@@ -3908,7 +4025,12 @@ def main(argv=None) -> int:
             ("bulk_histogram", BULK_HIST_REPLACES, "hist"),
             ("bulk_scatter", BULK_SCATTER_REPLACES, "scatter"),
             ("bulk_refine", BULK_SCATTER_REPLACES, "refine"),
-            ("bulk_apply", BULK_APPLY_REPLACES, "apply"))]}))
+            ("bulk_apply", BULK_APPLY_REPLACES, "apply"))] + [
+        {"name": "gather_pack", "route": "cuda", "source": PACK_SOURCE,
+         "replaces": PACK_REPLACES, "launches": main_planes["gather_pack"],
+         **{key: gp["in_order"][key] for key in ("max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms")},
+         **NO_LIBRARY}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

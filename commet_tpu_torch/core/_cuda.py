@@ -94,6 +94,11 @@ _SIGNATURES = {
                                        ctypes.c_void_p, ctypes.c_int64,
                                        ctypes.c_int, ctypes.c_void_p,
                                        ctypes.c_void_p]},
+    "pack": {"commet_gather_pack": [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_void_p]},
 }
 
 _lock = threading.Lock()

@@ -3,9 +3,13 @@ src/index_and_search.cpp), served by the sorted-join stream probe or by the
 dense bit planes.
 
 Counterpart of commet_tpu/engine/engine.py:
-  - the host batches eligible reads into 2-bit packed tensors (the native
-    gather+pack runs on a prefetch thread; on CUDA the batches land in pinned
-    memory and upload with non-blocking copies);
+  - eligible reads go to the kernels in batches of 2-bit packed tensors. On
+    the card without a mesh, each public call uploads a set's one-byte codes
+    once (EncodedSet.upload) and every batch is gathered and packed there by
+    core/pack.py's kernel; on the CPU, with a mesh, or where the codes do not
+    fit beside what the call needs, the host packs (the native gather+pack
+    on a prefetch thread; on CUDA the batches land in pinned memory and
+    upload with non-blocking copies);
   - partition boundaries follow the reference's read-granular cursor,
     including the read dropped at every partition boundary
     (index_reads.h:49-61) and found-read skipping between partitions
@@ -42,7 +46,8 @@ when the engine is made: ``COMMET_TPU_STREAM_BATCH``,
 ``COMMET_TPU_PROBE_BATCH`` and ``COMMET_TPU_BUILD_BATCH`` (``int(...)``)
 replace the STREAM_BATCH cap of the stream probe, the plane probe and the
 index builds (the memory clamps still apply on top); ``COMMET_TPU_PREFETCH=0``
-makes each host batch inline, without the prefetch thread; and
+makes each host batch inline, without the prefetch thread (the batches
+packed on the card are made inline always); and
 ``COMMET_TPU_PROFILE=<dir>`` (read at each call, as commet_tpu reads it)
 runs every public call (``index_and_search``, ``build_resident``,
 ``build_resident_planes``, ``search_multi_set``,
@@ -65,15 +70,20 @@ whole batch on every shard. The amortized schedule declines with a mesh, so
 the driver takes the classic rounds, as commet_tpu's does.
 
 Spans (trace.py), recorded while ``torch.profiler`` runs: ``call.<name>``
-around each public call; ``host.pack`` (attribute ``reads``) around each
-host batch, on the prefetch thread, with ``host.gather`` and, on the card,
-``host.pin`` inside it; ``host.wait`` where the dispatch loop waits for a
-batch; ``search.select`` (the candidates and their lengths), ``search.fetch``
-(the verdicts' copies to the host) and ``search.finish`` (counters, tags and
-files) around a search's batch loop; ``build.count`` and ``build.partition``
+around each public call; ``host.pack`` (attributes ``reads`` and ``route``)
+around each batch: on the host route on the prefetch thread, with
+``host.gather`` and, on the card, ``host.pin`` inside it; on the device
+route around the pack kernel's launch, inline; ``pack.upload`` (attribute
+``bytes``) around the device route's uploads of a set's codes (once a call,
+before its batch loops) and of a batch loop's read ids, outside
+``host.wait``; ``host.wait`` where the dispatch loop waits for a batch (on
+the device route, around each launch); ``search.select`` (the
+candidates and their lengths), ``search.fetch`` (the verdicts' copies to
+the host) and ``search.finish`` (counters, tags and files) around a
+search's batch loop; ``build.count`` and ``build.partition``
 (count_kmers, partitions); ``io.write`` (the .bv and .log files).
-``host.pack``, ``host.wait`` and ``search.fetch`` are the blocks that
-``last_io_stats`` sums.
+``host.pack``, ``host.wait``, ``pack.upload`` and ``search.fetch`` are the
+blocks that ``last_io_stats`` sums.
 
 There is no CPU fallback: the engine runs on the device it is given.
 """
@@ -92,7 +102,7 @@ import numpy as np
 import torch
 
 from commet_tpu_torch import trace
-from commet_tpu_torch.core import keys, planes, stream
+from commet_tpu_torch.core import keys, pack, planes, stream
 from commet_tpu_torch.device import resolve_device, synchronize
 from commet_tpu_torch.io.reads import ReadSet
 from commet_tpu_torch.native import parser as native
@@ -253,13 +263,42 @@ def _native():
 
 
 @dataclass
+class DeviceCodes:
+    """A set's reads on a device for the batches packed there
+    (pack.gather_pack): every file's one-byte codes back to back in one
+    uint8 buffer (padded to pack.CODES_ALIGN), and each read's offset into
+    it (int64) and length (int32), indexed by global read id, a file's first
+    id plus the read's position; on the host, each file's first id and
+    whether each read holds an invalid base, from which a batch's ``clean``
+    follows without asking the device."""
+
+    codes: torch.Tensor
+    offsets: torch.Tensor
+    lengths: torch.Tensor
+    first: np.ndarray
+    dirty: np.ndarray
+
+    def ids(self, idx: np.ndarray) -> np.ndarray:
+        """Global read ids of (file, position) rows ``idx``."""
+        return self.first[idx[:, 0]] + idx[:, 1]
+
+
+# device bytes a read takes on the device route: its offset (int64) and
+# length (int32) in DeviceCodes, and its global id (int64) in a batch loop
+DEVICE_BYTES_PER_READ = 8 + 4 + 8
+
+
+@dataclass
 class EncodedSet:
-    """A ReadSet's reads as flat 2-bit codes plus a ragged index, per file."""
+    """A ReadSet's reads as flat 2-bit codes plus a ragged index, per file.
+    An engine call makes one; its copy on the card (``upload``, made where
+    the call's Engine._upload finds room) lives as long as it does."""
 
     rs: ReadSet
     flat_codes: List[np.ndarray] = field(default_factory=list)
     offsets: List[np.ndarray] = field(default_factory=list)
     lengths: List[np.ndarray] = field(default_factory=list)
+    on_device: Optional[DeviceCodes] = None
 
     def __post_init__(self):
         for f in self.rs.files:
@@ -267,6 +306,45 @@ class EncodedSet:
             self.flat_codes.append(c)
             self.offsets.append(o)
             self.lengths.append(ln)
+
+    def _extent(self):
+        """(the codes buffer's bytes: the set's bases rounded up to
+        pack.CODES_ALIGN, the set's reads)."""
+        bases = sum(len(c) for c in self.flat_codes)
+        return (-(-bases // pack.CODES_ALIGN) * pack.CODES_ALIGN,
+                sum(len(ln) for ln in self.lengths))
+
+    def device_bytes(self) -> int:
+        """Device bytes of the device route for this set: ``upload``'s
+        codes, offsets and lengths, and the global ids of a batch loop over
+        every read."""
+        bases, reads = self._extent()
+        return bases + DEVICE_BYTES_PER_READ * reads
+
+    def upload(self, device) -> DeviceCodes:
+        """Copy every file's codes, offsets and lengths into one buffer
+        each on ``device`` (a slice a file, no host concatenation of the
+        codes), kept as ``on_device``."""
+        size, reads = self._extent()
+        codes = torch.empty(size, dtype=torch.uint8, device=device)
+        offsets = torch.empty(reads, dtype=torch.int64, device=device)
+        lengths = torch.empty(reads, dtype=torch.int32, device=device)
+        first = np.zeros(len(self.flat_codes), dtype=np.int64)
+        b = r = 0
+        for fi, (c, o, ln) in enumerate(zip(self.flat_codes, self.offsets,
+                                            self.lengths)):
+            first[fi] = r
+            codes[b:b + len(c)].copy_(torch.from_numpy(c))
+            offsets[r:r + len(ln)].copy_(torch.from_numpy(o[:-1] + b))
+            lengths[r:r + len(ln)].copy_(torch.from_numpy(ln))
+            b += len(c)
+            r += len(ln)
+        codes[b:].zero_()
+        dirty = (np.concatenate([f.class_counts()[0][:, 4] > 0
+                                 for f in self.rs.files]) if self.rs.files
+                 else np.zeros(0, dtype=bool))
+        self.on_device = DeviceCodes(codes, offsets, lengths, first, dirty)
+        return self.on_device
 
     def read_lengths(self, idx: np.ndarray) -> np.ndarray:
         out = np.zeros(len(idx), dtype=np.int32)
@@ -400,15 +478,19 @@ class Engine:
         # the Chrome trace of the last profiled public call
         self.last_trace: Optional[str] = None
         # host-IO accounting of the last search or resident build: total
-        # gather+pack work (prefetch thread), time the dispatch loop waited
-        # for a batch, time spent fetching verdicts (0 in a build)
+        # gather+pack work (prefetch thread, or the launches of the device
+        # route), time the dispatch loop waited for a batch, time spent
+        # uploading codes and read ids for the device route, reads packed
+        # on the device, time spent fetching verdicts (0 in a build)
         self.last_io_stats: Dict[str, float] = {}
-        self._io_pack = self._io_block = 0.0
+        self._io_pack = self._io_block = self._io_upload = 0.0
+        self._io_device = 0
         self._io_t0 = 0.0
 
     # ---------------------------------------------------------------- host
     def _host_batch(self, enc: EncodedSet, idx: np.ndarray, lpad: int):
-        with trace.clocked("host.pack", reads=len(idx)) as pack:
+        with trace.clocked("host.pack", reads=len(idx),
+                           route="host") as packed:
             with trace.span("host.gather"):
                 c2, vd, ln, clean = enc.gather_packed(idx, lpad)
             batch = [keys.host_u32(c2), keys.host_u32(vd),
@@ -416,18 +498,77 @@ class Engine:
             if self.device.type == "cuda":
                 with trace.span("host.pin"):
                     batch = [x.pin_memory() for x in batch]
-        self._io_pack += pack.seconds
+        self._io_pack += packed.seconds
         return batch + [clean]
+
+    def _upload(self, sets: List[EncodedSet], reserve: int) -> None:
+        """Give the device route to the sets of a public call: on the card
+        without a mesh, each of ``sets`` in turn whose device_bytes fit in
+        the free device bytes beside ``reserve`` (the most the rest of the
+        call allocates there at once) and the sets uploaded before it is
+        uploaded (_upload_set). The others keep the host route for the
+        call."""
+        if self.device.type != "cuda" or self.mesh is not None:
+            return
+        room = self._free_bytes() - reserve
+        for enc in sets:
+            if enc.device_bytes() <= room:
+                room -= enc.device_bytes()
+                self._upload_set(enc)
+
+    def _upload_set(self, enc: EncodedSet) -> None:
+        """EncodedSet.upload to the engine's device, under ``pack.upload``."""
+        with trace.clocked("pack.upload", bytes=enc.device_bytes()) as up:
+            enc.upload(self.device)
+        self._io_upload += up.seconds
 
     def _batched_packed(self, enc: EncodedSet, idx: np.ndarray, lpad: int,
                         size: int):
-        """Yield (row_slice, codes2, valid, lengths, clean) host batches of
-        at most ``size`` reads. The next batch's gather+pack runs on a
-        background thread while the caller works on the current one (the
-        native assembler releases the GIL); with prefetch off each batch is
-        made inline, its pack counted as time the dispatch loop waited.
-        Each pack runs under the span open where the batches are asked
-        for."""
+        """(row_slice, codes2, valid, lengths, clean) batches of at most
+        ``size`` reads ``idx`` padded to ``lpad`` (at least their longest
+        read): packed on the device (_device_batches) where the call
+        uploaded the set (_upload), else on the host (_host_batches)."""
+        if enc.on_device is not None:
+            return self._device_batches(enc, idx, lpad, size)
+        return self._host_batches(enc, idx, lpad, size)
+
+    def _device_batches(self, enc: EncodedSet, idx: np.ndarray, lpad: int,
+                        size: int):
+        """Yield the batches of _batched_packed gathered and packed on the
+        device by pack.gather_pack (its plain version on the CPU) from the
+        set's uploaded codes and the rows' global ids, uploaded once under
+        ``pack.upload`` and sliced per batch. Each launch runs inline, under
+        ``host.wait`` and ``host.pack``; ``clean`` is read from the host's
+        count of invalid bases, which is the pack's own test because
+        ``lpad`` holds every read whole."""
+        dev = enc.on_device
+        gids = dev.ids(idx)
+        dirty = dev.dirty[gids]
+        with trace.clocked("pack.upload", bytes=gids.nbytes) as up:
+            ids = torch.from_numpy(gids).to(dev.codes.device)
+        self._io_upload += up.seconds
+        for start in range(0, len(idx), size):
+            stop = min(start + size, len(idx))
+            with trace.clocked("host.wait") as wait:
+                with trace.clocked("host.pack", reads=stop - start,
+                                   route="device") as packed:
+                    batch = pack.gather_pack(dev.codes, dev.offsets,
+                                             dev.lengths, ids[start:stop],
+                                             lpad)
+            self._io_block += wait.seconds
+            self._io_pack += packed.seconds
+            self._io_device += stop - start
+            yield (slice(start, stop), *batch,
+                   not dirty[start:stop].any())
+
+    def _host_batches(self, enc: EncodedSet, idx: np.ndarray, lpad: int,
+                      size: int):
+        """Yield the batches of _batched_packed packed on the host. The
+        next batch's gather+pack runs on a background thread while the
+        caller works on the current one (the native assembler releases the
+        GIL); with prefetch off each batch is made inline, its pack counted
+        as time the dispatch loop waited. Each pack runs under the span
+        open where the batches are asked for."""
         starts = list(range(0, len(idx), size))
         pack = trace.carry(self._host_batch)
         if not self.prefetch:
@@ -454,7 +595,8 @@ class Engine:
         return x.to(self.device, non_blocking=True)
 
     def _io_reset(self):
-        self._io_pack = self._io_block = 0.0
+        self._io_pack = self._io_block = self._io_upload = 0.0
+        self._io_device = 0
         self._io_t0 = time.time()
 
     def _io_stash(self, fetch_s: float):
@@ -463,6 +605,8 @@ class Engine:
             "wall_s": wall,
             "host_pack_s": self._io_pack,
             "host_block_s": self._io_block,
+            "upload_s": self._io_upload,
+            "device_packed": self._io_device,
             "fetch_s": fetch_s,
         }
 
@@ -813,6 +957,10 @@ class Engine:
         kcounts = (self.count_kmers(enc_index, elig) if len(elig)
                    else np.zeros(0, dtype=np.int64))
         parts = self.partitions(kcounts)
+        self._upload([enc_index] + enc_queries, max(
+            (self._partition_bytes(enc_index, elig[part],
+                                   int(kcounts[part].sum()))
+             for part in parts), default=0))
 
         nb_indexed = 0
         found_tot = [0] * len(query_sets)
@@ -860,6 +1008,18 @@ class Engine:
                     q.save_result_bvs(out_dir, index_set.name)
         return counters
 
+    def _partition_bytes(self, enc: EncodedSet, idx: np.ndarray,
+                         n_kmers: int) -> int:
+        """The most device bytes index_and_search holds at once for one
+        partition of reads ``idx`` holding ``n_kmers`` k-mers: its build,
+        or its index or planes beside a search's workspace."""
+        if self.serves_sorted(n_kmers):
+            return max(n_kmers * BUILD_BYTES_PER_KMER,
+                       n_kmers * INDEX_BYTES_PER_KMER + STREAM_BATCH_BYTES)
+        return planes.plane_bytes(self.k) + max(
+            self._bulk_bytes(enc, idx, self.bulk_chunk()),
+            PLANES_WORKSPACE_BYTES)
+
     # ------------------------------------------- amortized all-vs-all step 0
     def _resident_budget(self, n_kmers: int,
                          budget: Optional[float]) -> float:
@@ -902,6 +1062,10 @@ class Engine:
         parts = self.partitions(kcounts)
         if not all(self.serves_sorted(int(kcounts[p].sum())) for p in parts):
             return None
+        # beside the set: its residents, the build and a search's workspace
+        self._upload([enc], total * (INDEX_BYTES_PER_KMER
+                                     + BUILD_BYTES_PER_KMER)
+                     + STREAM_BATCH_BYTES)
         sxs = [self.build_index(enc, elig[part], int(kcounts[part].sum()))
                for part in parts]
         synchronize(self.device)
@@ -948,6 +1112,7 @@ class Engine:
             if size is None:
                 return None
             self._io_reset()
+            self._upload([enc_q], STREAM_BATCH_BYTES)
             fetch_s = 0.0
             for base in range(0, len(slots), max_slots):
                 group = slots[base:base + max_slots]
@@ -1008,8 +1173,9 @@ class Engine:
         ``bulk_chunk`` window slots, bulk_chunk() by default), for the plane
         cohorts. Returns None, before any device allocation, when the engine
         has a mesh or the plane bytes (plane_bytes(k) per partition) and the
-        bulk build's chunk workspace exceed _planes_budget. Fills
-        last_io_stats (fetch_s 0). Counterpart of build_resident_planes."""
+        bulk build's chunk workspace exceed _planes_budget; the set takes
+        the device route where it fits beside them too. Fills last_io_stats
+        (fetch_s 0). Counterpart of build_resident_planes."""
         if self.mesh is not None:
             return None
         t0 = time.time()
@@ -1025,6 +1191,7 @@ class Engine:
             need += self._bulk_bytes(enc, elig, chunk)
         if need > self._planes_budget(budget):
             return None
+        self._upload([enc], need + PLANES_WORKSPACE_BYTES)
         pls = [self.build_planes(enc, elig[part], chunk) for part in parts]
         synchronize(self.device)
         self._io_stash(0.0)
@@ -1063,6 +1230,7 @@ class Engine:
             wmax = max(1, lmax - self.k + 1)
             size = row_batch_size(self.probe_batch, wmax)
             self._io_reset()
+            self._upload([enc_q], PLANES_WORKSPACE_BYTES)
             fetch_s = 0.0
             for base in range(0, len(slots), max_slots):
                 group = slots[base:base + max_slots]

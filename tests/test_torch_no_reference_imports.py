@@ -81,11 +81,12 @@ def test_scan_finds_reference_imports(tmp_path):
 
 
 def test_card_tests_import_the_port_reads():
-    """tests/test_torch_gpu.py and test_torch_gpu_mesh.py run where
-    commet_tpu and JAX may be absent: they and the helpers they import load
-    no module of either at import time."""
+    """tests/test_torch_gpu.py, test_torch_gpu_mesh.py and
+    test_torch_gpu_pack.py run where commet_tpu and JAX may be absent: they
+    and the helpers they import load no module of either at import
+    time."""
     for name in ("test_torch_gpu.py", "test_torch_gpu_mesh.py",
-                 "torch_helpers.py"):
+                 "test_torch_gpu_pack.py", "torch_helpers.py"):
         with open(os.path.join(REPO, "tests", name)) as f:
             tree = ast.parse(f.read())
         top = [n for n in tree.body

@@ -118,7 +118,8 @@ def test_profile_writes_one_trace_per_call(tmp_path, monkeypatch, calls):
 def test_prefetch_off_makes_no_thread(tmp_path, monkeypatch):
     """COMMET_TPU_PREFETCH=0: every host batch is made inline (a thread pool
     would raise), over several batches of the build and the probe, with
-    commet_tpu's bytes and the same last_io_stats keys as with prefetch."""
+    commet_tpu's bytes and the same last_io_stats keys as with prefetch
+    (none of the reads packed on a device, on the CPU)."""
     monkeypatch.setenv("COMMET_TPU_STREAM", "0")
     monkeypatch.setenv("COMMET_TPU_PREFETCH", "0")
     idx_fa, qry_fas, _ = make_fastas(tmp_path, 92, K, 0.02)
@@ -136,8 +137,10 @@ def test_prefetch_off_makes_no_thread(tmp_path, monkeypatch):
     assert got == want
     assert len(seen) > 4 and max(seen) == 40
     assert set(eng.last_io_stats) == {"wall_s", "host_pack_s",
-                                      "host_block_s", "fetch_s"}
+                                      "host_block_s", "upload_s",
+                                      "device_packed", "fetch_s"}
     assert eng.last_io_stats["host_block_s"] >= 0.0
+    assert eng.last_io_stats["device_packed"] == 0
 
 
 @pytest.mark.parametrize("switch,stream_mode", [
