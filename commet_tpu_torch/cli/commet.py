@@ -41,6 +41,7 @@ import argparse
 import os
 import sys
 
+from commet_tpu_torch import trace
 from commet_tpu_torch.cli import filter_reads as filter_cli
 from commet_tpu_torch.core import planes
 from commet_tpu_torch.device import resolve_device
@@ -52,6 +53,11 @@ from commet_tpu_torch.io.fof import (driver_read_bvs, driver_read_files,
 from commet_tpu_torch.io.reads import ReadSet
 from commet_tpu_torch.parallel import distributed
 from commet_tpu_torch.parallel.sharded import auto_mesh
+
+
+# index sets of one plane cohort, at most (COMMET_TPU_PLANE_COHORT_MAX
+# replaces it)
+PLANE_COHORT_MAX = 8
 
 
 def filter_all_reads(read_matrix, out_dir, l, n, e, m):
@@ -238,25 +244,55 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
     return True
 
 
+def build_plane_cohort(eng, load, start, end, budget, max_s):
+    """One plane cohort of step 0: index sets ``start``, ``start + 1``, ...
+    (``load(i) -> ReadSet``) built as resident plane sets
+    (Engine.build_resident_planes) while they fit ``budget`` less the
+    residents built before them, up to set ``end`` (excluded) and ``max_s``
+    sets; every set after the first is built beside the residents with
+    Engine.bulk_chunk(beside_residents=True). Each build runs under a
+    ``cohort.build`` span (attributes ``resident``, the set's index,
+    ``beside``, the residents already built, and ``chunk``). Returns (the
+    residents, their device bytes); no resident where two plane sets exceed
+    ``budget`` or set ``start`` does not fit it."""
+    cohort, total = [], 0
+    if 2 * planes.plane_bytes(eng.k) > budget:
+        return cohort, total
+    for i in range(start, min(end, start + max_s)):
+        chunk = eng.bulk_chunk(beside_residents=bool(cohort))
+        with trace.span("cohort.build", resident=i, beside=len(cohort),
+                        chunk=chunk):
+            r = eng.build_resident_planes(load(i), budget=budget - total,
+                                          bulk_chunk=chunk)
+        if r is None:
+            break
+        cohort.append(r)
+        total += r.device_bytes()
+    return cohort, total
+
+
 def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng,
                       why):
     """Step 0 of the all-vs-all schedule where the index sets cannot stay
     resident as sorted indexes (``why``): the index sets S_0 .. S_{end-1}
     are built as resident plane sets in contiguous cohorts of at most
-    COMMET_TPU_PLANE_COHORT_MAX (8) sets within the device-memory budget
-    (the free memory less the build and probe workspace, and
-    COMMET_TPU_PLANES_BUDGET when set: Engine._planes_budget), each query set is probed against its cohort predecessors with one
-    upload per batch (Engine.search_multi_set_planes), then the refinement
-    runs pairwise. A set built beside resident plane sets takes the smaller
-    bulk-build chunk (Engine.bulk_chunk(beside_residents=True): 2^26 window
-    slots at k >= 32 unless COMMET_TPU_BULK_CHUNK is set), passed to
-    Engine.build_resident_planes. Pair results equal the classic rounds'.
-    Returns False, after printing why, when fewer than two index sets need
-    the step or two plane sets do not fit the budget; the caller then runs
-    the classic rounds. Counterpart of commet_tpu's run_plane_cohorts."""
+    COMMET_TPU_PLANE_COHORT_MAX (PLANE_COHORT_MAX) sets within the
+    device-memory budget (the free memory less the build and probe
+    workspace, and COMMET_TPU_PLANES_BUDGET when set:
+    Engine._planes_budget) by build_plane_cohort, each query set is probed
+    against its cohort predecessors with one upload per batch
+    (Engine.search_multi_set_planes), then the refinement runs pairwise. A
+    set built beside resident plane sets takes the smaller bulk-build chunk
+    (Engine.bulk_chunk(beside_residents=True): 2^26 window slots at k >= 32
+    unless COMMET_TPU_BULK_CHUNK is set). Pair results equal the classic
+    rounds'. Returns False, after printing why, when fewer than two index
+    sets need the step or two plane sets do not fit the budget; the caller
+    then runs the classic rounds. Counterpart of commet_tpu's
+    run_plane_cohorts."""
     env_budget = os.environ.get("COMMET_TPU_PLANES_BUDGET")
     budget = eng._planes_budget(float(env_budget) if env_budget else None)
-    max_s = int(os.environ.get("COMMET_TPU_PLANE_COHORT_MAX", "8"))
+    max_s = int(os.environ.get("COMMET_TPU_PLANE_COHORT_MAX",
+                               str(PLANE_COHORT_MAX)))
     declined = None
     if end < 2:
         declined = "one index set: nothing to amortize"
@@ -265,22 +301,15 @@ def run_plane_cohorts(read_matrix, bv_matrix, names, out_dir, end, eng,
                     f"the plane budget of {budget:.0f} B")
     i = 0
     while declined is None and i < end:
-        cohort, total = [], 0
-        while i < end and len(cohort) < max_s:
-            rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
-            r = eng.build_resident_planes(
-                rs, budget=budget - total,
-                bulk_chunk=eng.bulk_chunk(beside_residents=bool(cohort)))
-            if r is None:
-                break
-            cohort.append(r)
-            total += r.device_bytes()
-            i += 1
+        cohort, total = build_plane_cohort(
+            eng, lambda j: _load_set(names[j], read_matrix[j], bv_matrix[j]),
+            i, end, budget, max_s)
         if not cohort:
             declined = (f"{names[i]}'s plane sets exceed the plane budget of "
                         f"{budget:.0f} B")
             break
-        first = i - len(cohort)
+        first = i
+        i += len(cohort)
         print(f"schedule: plane cohorts ({', '.join(r.name for r in cohort)}"
               f" resident as planes, {total} device bytes"
               f"{'; ' + why if first == 0 else ''})")

@@ -80,10 +80,15 @@ before its batch loops) and of a batch loop's read ids, outside
 the device route, around each launch); ``search.select`` (the
 candidates and their lengths), ``search.fetch`` (the verdicts' copies to
 the host) and ``search.finish`` (counters, tags and files) around a
-search's batch loop; ``build.count`` and ``build.partition``
+search's batch loop; ``search.slots`` (attribute ``slots``) around each
+group's PlaneSlots in search_multi_set_planes, its table upload included;
+``finish.resident`` (attributes ``resident``, the resident's position in
+the call, and ``shared``) around each resident's counters, .log and .bv
+writes in _multi_finish; ``build.count`` and ``build.partition``
 (count_kmers, partitions); ``io.write`` (the .bv and .log files).
 ``host.pack``, ``host.wait``, ``pack.upload`` and ``search.fetch`` are the
-blocks that ``last_io_stats`` sums.
+blocks that ``last_io_stats`` sums; search_multi_set_planes adds
+``slots``, the plane sets each read is probed against.
 
 There is no CPU fallback: the engine runs on the device it is given.
 """
@@ -280,6 +285,9 @@ class DeviceCodes:
 
     def ids(self, idx: np.ndarray) -> np.ndarray:
         """Global read ids of (file, position) rows ``idx``."""
+        if len(self.first) == 1:
+            # every row is in the one file
+            return idx[:, 1] + self.first[0]
         return self.first[idx[:, 0]] + idx[:, 1]
 
 
@@ -335,18 +343,22 @@ class EncodedSet:
                                             self.lengths)):
             first[fi] = r
             codes[b:b + len(c)].copy_(torch.from_numpy(c))
-            offsets[r:r + len(ln)].copy_(torch.from_numpy(o[:-1] + b))
+            offsets[r:r + len(ln)].copy_(torch.from_numpy(o[:-1]))
+            if b:
+                offsets[r:r + len(ln)].add_(b)
             lengths[r:r + len(ln)].copy_(torch.from_numpy(ln))
             b += len(c)
             r += len(ln)
         codes[b:].zero_()
-        dirty = (np.concatenate([f.class_counts()[0][:, 4] > 0
-                                 for f in self.rs.files]) if self.rs.files
-                 else np.zeros(0, dtype=bool))
+        dirty = (np.concatenate([f.invalid_reads() for f in self.rs.files])
+                 if self.rs.files else np.zeros(0, dtype=bool))
         self.on_device = DeviceCodes(codes, offsets, lengths, first, dirty)
         return self.on_device
 
     def read_lengths(self, idx: np.ndarray) -> np.ndarray:
+        if len(self.lengths) == 1:
+            # every row is in the one file
+            return self.lengths[0][idx[:, 1]]
         out = np.zeros(len(idx), dtype=np.int32)
         for fi in range(len(self.lengths)):
             rows = np.nonzero(idx[:, 0] == fi)[0]
@@ -1234,7 +1246,9 @@ class Engine:
             fetch_s = 0.0
             for base in range(0, len(slots), max_slots):
                 group = slots[base:base + max_slots]
-                table = planes.PlaneSlots(group) if len(group) > 1 else None
+                with trace.span("search.slots", slots=len(group)):
+                    table = (planes.PlaneSlots(group) if len(group) > 1
+                             else None)
                 pending = []  # (slice, device tags [S, b])
                 for sl, c2, vd, ln, clean in self._batched_packed(
                         enc_q, cand, lpad, size):
@@ -1251,6 +1265,7 @@ class Engine:
                             got.cpu().numpy()
                 fetch_s += fetch.seconds
             self._io_stash(fetch_s)
+            self.last_io_stats["slots"] = len(slots)
         return self._multi_finish(query_set, residents, cand, tags_slot,
                                   [0.0] * len(residents), t_start, out_dir,
                                   log_dir, save)
@@ -1272,26 +1287,29 @@ class Engine:
             for ri, r in enumerate(residents):
                 tr = tags_slot[si:si + len(r.partitions)]
                 si += len(r.partitions)
-                tags = tr.any(axis=0)
-                c = {
-                    "indexed": r.nb_indexed,
-                    "searched": (len(cand) - int(tr[:-1].any(axis=0).sum())
-                                 if len(tr) else 0),
-                    "shared": int(tags.sum()),
-                    "index_time": r.build_seconds,
-                    "search_time": joint / len(residents) + fb_time[ri],
-                    "total_time": time.time() - t_start,
-                }
-                counters[r.name] = c
-                if log_dir is not None:
-                    self._write_log(log_dir, query_set.name, r.name, c)
-                if save and out_dir is not None:
-                    hit = cand[tags]
-                    if len(hit):
-                        query_set.tag(hit[:, 0], hit[:, 1])
-                    query_set.save_result_bvs(out_dir, r.name)
-                    for bv in query_set.result_bvs:
-                        bv.set_all_false()
+                hit = np.flatnonzero(tr.any(axis=0))
+                shared = len(hit)
+                # the reads tagged in partitions before the last one
+                before = int(tr[:-1].any(axis=0).sum()) if len(tr) > 1 else 0
+                with trace.span("finish.resident", resident=ri,
+                                shared=shared):
+                    c = {
+                        "indexed": r.nb_indexed,
+                        "searched": len(cand) - before if len(tr) else 0,
+                        "shared": shared,
+                        "index_time": r.build_seconds,
+                        "search_time": joint / len(residents) + fb_time[ri],
+                        "total_time": time.time() - t_start,
+                    }
+                    counters[r.name] = c
+                    if log_dir is not None:
+                        self._write_log(log_dir, query_set.name, r.name, c)
+                    if save and out_dir is not None:
+                        if shared:
+                            query_set.tag(cand[hit, 0], cand[hit, 1])
+                        query_set.save_result_bvs(out_dir, r.name)
+                        for bv in query_set.result_bvs:
+                            bv.set_all_false()
         return counters
 
     @staticmethod

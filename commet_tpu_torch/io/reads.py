@@ -144,6 +144,10 @@ class ReadFile:
         """Per-read (A,C,G,T,other) counts + lengths, for the filter."""
         return self._class_counts, self._lengths.astype(np.int64)
 
+    def invalid_reads(self) -> np.ndarray:
+        """Per read, whether it holds a base other than A, C, G or T."""
+        return self._class_counts[:, 4] > 0
+
 
 def load_read_file(path: str, bv_path: Optional[str] = None) -> ReadFile:
     """Open a read file, count reads, attach its filter bit vector
@@ -177,25 +181,37 @@ class ReadSet:
         self.files.append(rf)
         self.result_bvs.append(BitVector(rf.nb_reads))
 
-    def _rows(self, masks) -> np.ndarray:
-        out = [np.stack([np.full(len(pos), fi, dtype=np.int64), pos], axis=1)
-               for fi, pos in enumerate(np.nonzero(m)[0] for m in masks)]
-        if not out:
-            return np.zeros((0, 2), dtype=np.int64)
-        return np.concatenate(out, axis=0)
+    @staticmethod
+    def _rows(masks) -> np.ndarray:
+        """(file_idx, read_pos) rows of the set bits of each file's packed
+        mask (BitVector bytes and size), filled into one array."""
+        pos = [np.flatnonzero(np.unpackbits(data, bitorder="little")[:size])
+               for data, size in masks]
+        out = np.empty((sum(len(p) for p in pos), 2), dtype=np.int64)
+        at = 0
+        for fi, p in enumerate(pos):
+            out[at:at + len(p), 0] = fi
+            out[at:at + len(p), 1] = p
+            at += len(p)
+        return out
 
     def eligible(self):
         """Global list of eligible reads as (file_idx, read_pos) pairs in
         streaming order (filter bit set)."""
-        return self._rows(f.filter_bv.as_bool_array() for f in self.files)
+        return self._rows((f.filter_bv.data, f.filter_bv.size)
+                          for f in self.files)
 
     def untagged_eligible(self):
         """Eligible reads whose result bit is still 0 (search candidates,
         file_manager.h:99-109)."""
-        return self._rows(f.filter_bv.as_bool_array() & ~r.as_bool_array()
+        return self._rows((f.filter_bv.data & ~r.data, r.size)
                           for f, r in zip(self.files, self.result_bvs))
 
     def tag(self, file_idx: np.ndarray, read_pos: np.ndarray) -> None:
+        if len(self.result_bvs) == 1:
+            # every row is in the one file
+            self.result_bvs[0].set_many(read_pos)
+            return
         for fi in np.unique(file_idx):
             self.result_bvs[fi].set_many(read_pos[file_idx == fi])
 

@@ -11,8 +11,9 @@ span is also a ``record_function`` range, so it shows in the profiler's own
 trace on the thread the profiler follows; ``to_chrome`` adds those of the
 threads it does not follow, such as the prefetch thread.
 
-``span(name)`` marks a block. While no profiler runs it returns one shared
-no-op object after a single flag check: no clock reading, no allocation.
+``span(name, **attrs)`` marks a block. While no profiler runs it returns
+one shared no-op object after a single flag check: no clock reading, no
+allocation.
 ``clocked(name, **attrs)`` times its block always (``seconds``), for the
 sums the engine keeps whether or not it records, and is a span, with
 ``attrs``, while a profiler runs. A span's parent is the innermost span
@@ -106,11 +107,12 @@ class _Open:
         return (self.end - self.start) * 1e-9
 
 
-def span(name: str):
-    """A span around the ``with`` block, recorded while a profiler runs."""
+def span(name: str, **attrs):
+    """A span around the ``with`` block, with ``attrs``, recorded while a
+    profiler runs."""
     if not _profiler._is_profiler_enabled:
         return OFF
-    return _Open(name, None, True)
+    return _Open(name, attrs or None, True)
 
 
 def clocked(name: str, **attrs) -> _Open:

@@ -157,6 +157,40 @@ def test_read_set_matches(tmp_path, fmt, gz):
         assert got[3] == (not dirty)
 
 
+@pytest.mark.parametrize("n_files", [1, 3])
+def test_rows_tags_and_lengths_match(tmp_path, n_files):
+    """Sets of one file and of several (a filter .bv on each, its padding
+    bits set on one): the eligible and untagged rows, the tags of rows
+    picked out of order, twice, and the rows' lengths equal commet_tpu's
+    and a per-row count."""
+    rng = np.random.default_rng(11 + n_files)
+    sets = {"jax": jreads.ReadSet("S"), "torch": treads.ReadSet("S")}
+    for f in range(n_files):
+        seqs = random_seqs(rng, 40 + 13 * f, 0, 60)
+        path = str(tmp_path / f"r{f}.fa")
+        _write_reads(path, seqs, "fasta", False)
+        keep = jbv.BitVector.from_bool_array(rng.random(len(seqs)) < 0.6)
+        if f == 0:
+            keep.full_not()
+        keep.write(str(tmp_path / f"keep{f}.bv"))
+        for rs in sets.values():
+            rs.add_file(path, str(tmp_path / f"keep{f}.bv"))
+    rows = sets["torch"].eligible()
+    np.testing.assert_array_equal(rows, sets["jax"].eligible())
+    lengths = tengine.EncodedSet(sets["torch"]).read_lengths(rows)
+    np.testing.assert_array_equal(lengths, [
+        sets["torch"].files[fi].encoded()[2][pos] for fi, pos in rows])
+    for _ in range(2):
+        pick = rows[rng.permutation(len(rows))[:len(rows) // 3]]
+        for rs in sets.values():
+            rs.tag(pick[:, 0], pick[:, 1])
+        np.testing.assert_array_equal(sets["torch"].untagged_eligible(),
+                                      sets["jax"].untagged_eligible())
+        for got, want in zip(sets["torch"].result_bvs,
+                             sets["jax"].result_bvs):
+            np.testing.assert_array_equal(got.data, want.data)
+
+
 def test_filter_functions_match():
     """shannon_index, class_counts, filter_reads and filter_reads_counts
     on reads with Ns, low-entropy and empty reads, every threshold kind and

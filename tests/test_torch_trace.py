@@ -75,7 +75,8 @@ def test_off_records_nothing_and_on_changes_no_output(tmp_path, monkeypatch,
     assert {s.name for s in spans} == {
         "call.index_and_search", *CALLS, "io.write",
         "build.count", "build.partition", "host.pack", "host.gather",
-        "host.wait", "search.select", "search.fetch", "search.finish"}
+        "host.wait", "search.select", "search.fetch", "search.finish",
+        "search.slots", "finish.resident"}
     assert trace.span("c") is trace.OFF
 
 
