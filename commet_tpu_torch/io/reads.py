@@ -112,6 +112,7 @@ class ReadFile:
         self._offsets = d["offsets"]
         self._lengths = d["lengths"]
         self._class_counts = d["class_counts"]
+        self._invalid_at = np.flatnonzero(self._class_counts[:, 4])
         self.nb_reads = d["n_reads"]
         self._records: Optional[List[bytes]] = None
 
@@ -146,7 +147,14 @@ class ReadFile:
 
     def invalid_reads(self) -> np.ndarray:
         """Per read, whether it holds a base other than A, C, G or T."""
-        return self._class_counts[:, 4] > 0
+        out = np.zeros(len(self._lengths), dtype=bool)
+        out[self._invalid_at] = True
+        return out
+
+    def invalid_positions(self) -> np.ndarray:
+        """The positions of the reads that hold a base other than A, C, G
+        or T, ascending."""
+        return self._invalid_at
 
 
 def load_read_file(path: str, bv_path: Optional[str] = None) -> ReadFile:

@@ -14,6 +14,8 @@ threads it does not follow, such as the prefetch thread.
 ``span(name, **attrs)`` marks a block. While no profiler runs it returns
 one shared no-op object after a single flag check: no clock reading, no
 allocation.
+A span's ``note(**attrs)`` adds attributes known only inside its block
+(a no-op on the shared one).
 ``clocked(name, **attrs)`` times its block always (``seconds``), for the
 sums the engine keeps whether or not it records, and is a span, with
 ``attrs``, while a profiler runs. A span's parent is the innermost span
@@ -56,6 +58,9 @@ class _Off:
 
     def __exit__(self, *exc):
         return False
+
+    def note(self, **attrs):
+        pass
 
 
 OFF = _Off()
@@ -101,6 +106,10 @@ class _Open:
             _spans.append((self.id, self.name, self.start, self.end, tid,
                            self.parent, self.attrs))
         return False
+
+    def note(self, **attrs):
+        """Add ``attrs`` to the span's attributes before it ends."""
+        self.attrs = dict(self.attrs or {}, **attrs)
 
     @property
     def seconds(self) -> float:

@@ -87,6 +87,81 @@ def test_partitions_match_jax(monkeypatch):
             np.testing.assert_array_equal(g, w)
 
 
+def _cursor_loop(kmer_counts, max_kmer):
+    """The partition cursor read by read, as the reference walks it
+    (index_reads.h:49-61, index_and_search.cpp:255-277): the oracle of
+    Engine.partitions."""
+    n = len(kmer_counts)
+    parts = []
+    cursor = 0
+    seen = 0
+    while seen < n:
+        nb = 0
+        members = []
+        seen += 1
+        if cursor >= n:
+            break
+        r = cursor
+        cursor += 1
+        while True:
+            if nb >= max_kmer:
+                break  # read r is consumed but not indexed
+            members.append(r)
+            nb += int(kmer_counts[r])
+            seen += 1
+            if cursor >= n:
+                r = None
+                break
+            r = cursor
+            cursor += 1
+        parts.append(np.array(members, dtype=np.int64))
+        if r is None:
+            break
+    return parts
+
+
+def _random_counts(seed, top):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, top + 1, 400).astype(np.int64)
+    counts[rng.random(400) < 1 / 3] = 0
+    return counts
+
+
+CURSOR_CASES = [
+    *[pytest.param(_random_counts(seed, top), cap,
+                   id=f"random0-{top}-cap{cap}")
+      for seed, top in ((5, 6), (6, 120))
+      for cap in (1, 2, 7, 50, 10 ** 6, None)],
+    pytest.param(np.zeros(0, dtype=np.int64), 5, id="empty"),
+    pytest.param(np.array([3]), 5, id="one-read"),
+    pytest.param(np.zeros(9, dtype=np.int64), 1, id="all-zero"),
+    pytest.param(np.array([2, 9, 1, 5, 0, 12, 3]), 5,
+                 id="read-alone-at-or-over-cap"),
+    pytest.param(np.array([2, 2, 2, 2, 2]), 10, id="cap-at-last-read"),
+    pytest.param(np.array([2, 2, 2, 2, 2]), 8, id="cap-at-last-but-one"),
+    pytest.param(np.array([2, 2, 0, 0, 2, 2, 0]), 4,
+                 id="zeros-around-cap"),
+    pytest.param(np.array([1 << 40, 1 << 40, 7, 1 << 40, 1, 1]), 1 << 41,
+                 id="counts-of-2^40"),
+]
+
+
+@pytest.mark.parametrize("counts,max_kmer", CURSOR_CASES)
+def test_partitions_match_the_read_loop(counts, max_kmer):
+    """Engine.partitions' prefix sum gives the read-by-read cursor's
+    partitions, each an int64 array of positions; None: a cap above the
+    counts' total."""
+    if max_kmer is None:
+        max_kmer = int(counts.sum()) + 1
+    want = _cursor_loop(counts, max_kmer)
+    got = tengine.Engine(k=15, t=T, device="cpu",
+                         max_kmer=max_kmer).partitions(counts)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+
+
 def test_engine_k33_matches_oracle(tmp_path):
     """k=33 (the reference default) with whole int64 keys: stream probe and
     exact fallback reproduce the oracle's tags."""
