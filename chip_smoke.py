@@ -107,9 +107,8 @@ Phases, each printing one line with its seconds:
      fragment N-free (the 1% N reads are drawn among the reads that hold or
      give none); 272M k-mers per set, 3.2% fill, above the gate, so step 0
      runs the plane cohorts (three 4 GiB residents). The driver must say so,
-     probe S = 3 slots for set 4, launch the default build's kernels
-     (engine.CARD_BULK_BUILD: the bulk build's four, else
-     commet_build_planes) and both probes, and match the known shared
+     probe S = 3 slots for set 4, launch the default build's kernels (the
+     bulk build's four) and both probes, and match the known shared
      counts;
  11. compare_reads at COMMET's defaults (-k 33 -t 2), in phase 10's
      directory after its driver: set 1 against set 2 of phase 10, each file
@@ -3094,7 +3093,7 @@ def phase_bulk_default_fill(pl, batches, lengths, lpad: int,
             "half_ms": half_ms, "half_held": half_held,
             "half_peak": half_peak,
             "faster": "bulk" if ms < fill_ms else "per-batch",
-            "default": "bulk" if engine.CARD_BULK_BUILD else "per-batch"}
+            "default": "bulk"}
 
 
 def run_phase_default_fill(device, rng) -> dict:
@@ -3218,7 +3217,7 @@ def run_phase_default_fill_kernels(device, t0: float) -> dict:
         f"{'close' if skip_share < 0.15 else 'queue'}); the build of one "
         f"default partition: bulk {bk['ms']:.3f} ms, per-batch atomic fill "
         f"{fk['fill_ms']:.3f} ms: faster {bk['faster']}, the engine's card "
-        f"default {bk['default']} (engine.CARD_BULK_BUILD) "
+        f"default {bk['default']} (Engine.uses_bulk_build) "
         f"({time.perf_counter() - t0:.3f} s for phase 14)")
     return fk
 
@@ -3453,13 +3452,9 @@ def zero_counts(stream, planes):
 
 def _build_fns(planes):
     """The wrappers of the dense-plane build the card takes by default
-    (engine.CARD_BULK_BUILD): the bulk build's four, or the per-batch
-    build."""
-    from commet_tpu_torch.engine import engine
-    if engine.CARD_BULK_BUILD:
-        return (planes.bulk_histogram, planes.bulk_scatter,
-                planes.bulk_refine, planes.bulk_apply)
-    return (planes.build_planes,)
+    (Engine.uses_bulk_build): the bulk build's four."""
+    return (planes.bulk_histogram, planes.bulk_scatter, planes.bulk_refine,
+            planes.bulk_apply)
 
 
 def _build_launches(planes) -> int:

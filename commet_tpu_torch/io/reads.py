@@ -1,5 +1,6 @@
 """Host-side read-file layer of the port: fasta/fastq (+gzip) read sets,
-2-bit encoded by the port's native library (native/parser.py), and the full
+encoded one byte a base (codes 0-4) by the port's native library
+(native/parser.py), and the full
 record text that extract_reads needs, parsed in Python when first read. The
 port's copy of commet_tpu/io/reads.py, less its pure-Python encoder: the
 native library is the only parse of the codes, and a build that fails

@@ -163,13 +163,12 @@ def test_engine_bulk_force_matches_jax(tmp_path, monkeypatch):
 
 def test_bulk_switch_values(tmp_path, monkeypatch):
     """COMMET_TPU_BULK_BUILD: unset and 1 take the per-batch build on the
-    CPU and CARD_BULK_BUILD's route on the card, 0 never the bulk build,
-    force always (also an unknown value reads as 1, as commet_tpu reads it).
+    CPU and the bulk build on the card, 0 never the bulk build, force
+    always (also an unknown value reads as 1, as commet_tpu reads it).
     COMMET_TPU_BULK_CHUNK replaces the default chunk, 2^28 below k = 32 and
     2^27 from it, 2^26 beside resident plane sets at k >= 32; a value that
     is not an integer raises when the engine is made."""
-    cases = {None: tengine.CARD_BULK_BUILD, "1": tengine.CARD_BULK_BUILD,
-             "yes": tengine.CARD_BULK_BUILD, "0": False, "force": True}
+    cases = {None: True, "1": True, "yes": True, "0": False, "force": True}
     for value, on_card in cases.items():
         if value is None:
             monkeypatch.delenv("COMMET_TPU_BULK_BUILD", raising=False)
@@ -323,7 +322,8 @@ def test_bulk_memory_checks(tmp_path, monkeypatch):
     eng = tengine.Engine(k=k, t=2, device="cpu")
     eng.device = torch.device("cuda")
     chunk = eng.bulk_chunk()
-    work = eng._bulk_bytes(enc, elig, chunk)
+    geom = tengine._geometry(enc.read_lengths(elig), k)
+    work = eng._bulk_bytes(geom, chunk)
     lpad, rows = 96, 65536  # 70 bp reads; one batch holds them all
     assert work == planes.bulk_workspace_bytes(
         k, chunk, rows * (lpad - k + 1), rows * 4 * (6 + 3 + 1), rows)
@@ -342,4 +342,4 @@ def test_bulk_memory_checks(tmp_path, monkeypatch):
     monkeypatch.setenv("COMMET_TPU_BULK_BUILD", "0")
     per_batch = tengine.Engine(k=k, t=2, device="cpu")
     per_batch.device = torch.device("cuda")
-    assert per_batch._bulk_bytes(enc, elig, chunk) == 0
+    assert per_batch._bulk_bytes(geom, chunk) == 0

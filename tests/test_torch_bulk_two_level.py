@@ -180,7 +180,8 @@ def test_workspace_counts_second_buffer(tmp_path, monkeypatch):
     eng = tengine.Engine(k=k, t=2, device="cpu")
     eng.device = torch.device("cuda")  # the memory checks only: no card used
     chunk = eng.bulk_chunk()
-    work = eng._bulk_bytes(enc, elig, chunk)
+    work = eng._bulk_bytes(tengine._geometry(enc.read_lengths(elig), k),
+                           chunk)
     batch_slots = 65536 * (96 - k + 1)  # 70 bp reads, lpad 96
     n_batches = chunk // batch_slots + 1
     no_table = work - 2 * planes.bulk_table_size(4 * n_batches * batch_slots,

@@ -148,18 +148,21 @@ CURSOR_CASES = [
 
 @pytest.mark.parametrize("counts,max_kmer", CURSOR_CASES)
 def test_partitions_match_the_read_loop(counts, max_kmer):
-    """Engine.partitions' prefix sum gives the read-by-read cursor's
+    """Engine._ranges' prefix sum gives the read-by-read cursor's
+    partitions as (start, stop) ranges, and Engine.partitions the same
     partitions, each an int64 array of positions; None: a cap above the
     counts' total."""
     if max_kmer is None:
         max_kmer = int(counts.sum()) + 1
     want = _cursor_loop(counts, max_kmer)
-    got = tengine.Engine(k=15, t=T, device="cpu",
-                         max_kmer=max_kmer).partitions(counts)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
+    eng = tengine.Engine(k=15, t=T, device="cpu", max_kmer=max_kmer)
+    ranges = eng._ranges(counts)
+    got = eng.partitions(counts)
+    assert len(got) == len(ranges) == len(want)
+    for g, (s, t), w in zip(got, ranges, want):
         assert g.dtype == np.int64
         np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(np.arange(s, t), w)
 
 
 def test_engine_k33_matches_oracle(tmp_path):

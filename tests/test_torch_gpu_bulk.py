@@ -132,8 +132,7 @@ def test_bulk_engine_cuda_matches_per_batch(tmp_path, monkeypatch,
     """The engine on the card with COMMET_TPU_BULK_BUILD=force and chunks
     of 20,000 window slots (many flushes, a smaller last chunk) builds the
     planes of COMMET_TPU_BULK_BUILD=0, launching the bulk kernels and not
-    the per-batch one; and the card's default takes CARD_BULK_BUILD's
-    route."""
+    the per-batch one; and the card's default takes the bulk build."""
     rng = np.random.default_rng(90)
     path = str(tmp_path / "i.fa")
     write_fasta(path, random_seqs(rng, 3000, 20, 150, n_frac=0.01))
@@ -151,7 +150,7 @@ def test_bulk_engine_cuda_matches_per_batch(tmp_path, monkeypatch,
         eng = tengine.Engine(k=21, t=2, device=cuda_device)
         got[mode] = eng.build_planes(enc, rs.eligible())
         torch.cuda.synchronize()
-        bulk = mode == "force" or (mode is None and tengine.CARD_BULK_BUILD)
+        bulk = mode != "0"
         assert eng.uses_bulk_build() == bulk
         assert (planes.bulk_apply.launches > 2) == bulk
         assert (planes.build_planes.launches > 0) == (not bulk)

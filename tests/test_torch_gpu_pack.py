@@ -142,7 +142,8 @@ def test_codes_that_do_not_fit_take_the_host_route(tmp_path, monkeypatch,
     eng = tengine.Engine(k=K, t=T, device=cuda_device)
     enc = tengine.EncodedSet(rs)
     idx = rs.eligible()
-    lpad = tengine._pad_length(int(enc.read_lengths(idx).max()), K)
+    geom = tengine._geometry(enc.read_lengths(idx), K)
+    lpad = geom.lpad
     free = eng._free_bytes()
     monkeypatch.setattr(eng, "_free_bytes",
                         lambda device=None, free=free: free)
@@ -154,8 +155,7 @@ def test_codes_that_do_not_fit_take_the_host_route(tmp_path, monkeypatch,
     assert enc.on_device is not None
     sl, c2, _vd, _ln, _clean = next(eng._batched_packed(enc, idx, lpad, 256))
     assert c2.is_cuda
-    need = (planes.plane_bytes(K) + eng._bulk_bytes(enc, idx,
-                                                    eng.bulk_chunk())
+    need = (planes.plane_bytes(K) + eng._bulk_bytes(geom, eng.bulk_chunk())
             + tengine.PLANES_WORKSPACE_BYTES)
     built = []
     for free, route in ((need - 1, None), (need, "host"),
@@ -193,14 +193,10 @@ def test_multi_partition_call_reserves_its_later_partitions(
     _c, want = run_engine(host, idx_fa, qry_fas, str(tmp_path / "host"))
     eng = tengine.Engine(k=K, t=T, device=cuda_device, max_kmer=40000)
     rs = read_set("I", idx_fa, engine=eng)
-    enc = tengine.EncodedSet(rs)
-    elig = rs.eligible()
-    kcounts = eng.count_kmers(enc, elig)
-    parts = eng.partitions(kcounts)
-    assert len(parts) > 2
-    least = max(eng._partition_bytes(enc, elig[p], int(kcounts[p].sum()))
-                for p in parts)
-    sizes = [enc.device_bytes()] + [
+    plan = eng._plan(rs)
+    assert len(plan.parts) > 2
+    least = max(eng._partition_bytes(p) for p in plan.parts)
+    sizes = [plan.enc.device_bytes()] + [
         tengine.EncodedSet(read_set(f"Q{qi}", path, engine=eng))
         .device_bytes() for qi, path in enumerate(qry_fas)]
     torch.cuda.synchronize()

@@ -176,7 +176,7 @@ def test_build_resident_refuses_before_the_build_check(tmp_path,
                         lambda dev: (free, 80 << 30))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 0)
-    monkeypatch.setattr(eng, "build_index", None)  # must not be reached
+    monkeypatch.setattr(eng, "_build_index", None)  # must not be reached
     assert eng.build_resident(rs) is None
 
 

@@ -90,8 +90,9 @@ def test_plain_pack_matches_host_gather(tmp_path, case):
         f.nb_reads for f in rs.files)
     idx = rs.untagged_eligible()
     assert len(idx) > 10
-    lmax = int(enc.read_lengths(idx).max())
-    lpads = {tengine._pad_length(lmax, K), lmax, lmax + 16, lmax + 45}
+    geom = tengine._geometry(enc.read_lengths(idx), K)
+    lmax = geom.lmax
+    lpads = {geom.lpad, lmax, lmax + 16, lmax + 45}
     for lpad in sorted(lpads):
         for rows in (idx, idx[rng.permutation(len(idx))]):
             c2, vd, ln, clean = enc.gather_packed(rows, lpad)
@@ -128,7 +129,7 @@ def test_device_batches_match_host_batches(tmp_path):
     eng = tengine.Engine(k=K, t=T, device="cpu")
     enc = tengine.EncodedSet(rs)
     idx = rs.untagged_eligible()
-    lpad = tengine._pad_length(int(enc.read_lengths(idx).max()), K)
+    lpad = tengine._geometry(enc.read_lengths(idx), K).lpad
     eng._io_reset()
     eng._upload_set(enc)
     first = enc.on_device

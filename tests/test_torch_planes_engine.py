@@ -28,7 +28,8 @@ COUNTERS = ("indexed", "searched", "shared")
 def _routes(monkeypatch, eng):
     """Record the route each partition build of ``eng`` takes."""
     seen = []
-    for name, route in (("build_index", "sorted"), ("build_planes", "planes")):
+    for name, route in (("_build_index", "sorted"),
+                        ("_build_planes", "planes")):
         real = getattr(eng, name)
 
         def spy(*args, _real=real, _route=route):
@@ -220,7 +221,7 @@ def test_resident_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("COMMET_TPU_STREAM", "force")
     assert tengine.Engine(k=k, t=T, device="cpu").build_resident(rs) \
         is not None
-    monkeypatch.setattr(eng, "build_planes", None)  # must not be reached
+    monkeypatch.setattr(eng, "_build_planes", None)  # must not be reached
     assert eng.build_resident_planes(rs, budget=10.0) is None
     monkeypatch.undo()
     eng = tengine.Engine(k=k, t=T, device="cpu", max_kmer=700)
