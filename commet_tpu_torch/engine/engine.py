@@ -5,11 +5,12 @@ dense bit planes.
 Counterpart of commet_tpu/engine/engine.py:
   - eligible reads go to the kernels in batches of 2-bit packed tensors. On
     the card without a mesh, each public call uploads a set's one-byte codes
-    once (EncodedSet.upload) and every batch is gathered and packed there by
-    core/pack.py's kernel; on the CPU, with a mesh, or where the codes do not
-    fit beside what the call needs, the host packs (the native gather+pack
-    on a prefetch thread; on CUDA the batches land in pinned memory and
-    upload with non-blocking copies);
+    once (EncodedSet.upload: a DMA from page-locked memory, into which a
+    read file uploaded often moves) and every batch is gathered and
+    packed there by core/pack.py's kernel; on the CPU, with a mesh, or where
+    the codes do not fit beside what the call needs, the host packs (the
+    native gather+pack on a prefetch thread; on CUDA the batches land in
+    pinned memory and upload with non-blocking copies);
   - partition boundaries follow the reference's read-granular cursor,
     including the read dropped at every partition boundary
     (index_reads.h:49-61) and found-read skipping between partitions
@@ -79,15 +80,21 @@ Spans (trace.py), recorded while ``torch.profiler`` runs: ``call.<name>``
 around each public call; ``host.pack`` (attributes ``reads`` and ``route``)
 around each batch: on the host route on the prefetch thread, with
 ``host.gather`` and, on the card, ``host.pin`` inside it; on the device
-route around the pack kernel's launch, inline; ``pack.upload`` (attribute
-``bytes``) around the device route's uploads of a set's codes (once a call,
+route around the pack kernel's launch, inline; ``pack.upload`` (attributes
+``bytes``, the bytes copied, and ``pinned``, those copied from page-locked
+memory) around the device route's uploads of a set's codes (once a call,
 before its batch loops) and of a batch loop's read ids, outside
-``host.wait``; ``host.wait`` where the dispatch loop waits for a batch (on
-the device route, around each launch); ``search.select`` (the
-candidates and their lengths), ``search.fetch`` (the verdicts' copies to
-the host) and ``search.finish`` (counters, tags and files) around a
-search's batch loop; ``search.slots`` (attribute ``slots``) around each
-group's PlaneSlots in search_multi_set_planes, its table upload included;
+``host.wait``: for page-locked bytes it times the copies' queueing, and
+the DMA itself is waited for where the results are fetched; ``pack.pin``
+(attribute ``bytes``) inside the ``pack.upload`` of a set around each of
+its read files' move into page-locked memory, once a file, at its upload
+after PAGEABLE_UPLOADS pageable ones; ``host.wait`` where the dispatch
+loop waits for a batch (on the device route, around each launch);
+``search.select`` (the candidates and their lengths), ``search.fetch``
+(the verdicts' copies to the host) and ``search.finish`` (counters, tags
+and files) around a search's batch loop; ``search.slots`` (attribute
+``slots``) around each group's PlaneSlots in search_multi_set_planes, its
+table upload included;
 ``finish.resident`` (attributes ``resident``, the resident's position in
 the call, and ``shared``) around each resident's counters, .log and .bv
 writes in _multi_finish; ``build.count`` (attributes ``reads``, the rows
@@ -95,8 +102,9 @@ counted, and ``scanned``, those whose codes the native scan read) and
 ``build.partition`` (attribute ``parts``) around count_kmers and
 partitions; ``io.write`` (the .bv and .log files).
 ``host.pack``, ``host.wait``, ``pack.upload`` and ``search.fetch`` are the
-blocks that ``last_io_stats`` sums; search_multi_set_planes adds
-``slots``, the plane sets each read is probed against.
+blocks that ``last_io_stats`` sums, with ``upload_pinned_bytes``, the
+uploads' ``pinned`` bytes; search_multi_set_planes adds ``slots``, the
+plane sets each read is probed against.
 
 There is no CPU fallback: the engine runs on the device it is given.
 """
@@ -108,7 +116,7 @@ import os
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -284,6 +292,29 @@ def _native():
     return native
 
 
+# a read file's device-route uploads before it moves into page-locked
+# memory (Engine._pin). On an H100 host the move cost about 0.56 s a GB,
+# the page-locked allocation included, and a pageable copy about 0.15 s a
+# GB, against about 0.02 s a GB of DMA: the move pays back only after
+# about four uploads. So a file uploaded at most this often (every set of
+# the command line tools, index_and_search -f included) keeps its pageable
+# arrays, and one uploaded more often pays at most about twice the least
+# it could.
+PAGEABLE_UPLOADS = 3
+
+
+def _page_locked(device: torch.device):
+    """``torch.empty`` in page-locked host memory, from which a copy to
+    ``device`` runs as DMA, queued without waiting for it; None where
+    ``device`` is no CUDA device, which gains nothing from it. A freed
+    block goes back to PyTorch's caching host allocator, which keeps it
+    page-locked, rounded up to a power of two, for the next request of
+    its size."""
+    if device.type != "cuda":
+        return None
+    return functools.partial(torch.empty, pin_memory=True)
+
+
 @dataclass
 class DeviceCodes:
     """A set's reads on a device for the batches packed there
@@ -300,12 +331,14 @@ class DeviceCodes:
     first: np.ndarray
     dirty: np.ndarray
 
-    def ids(self, idx: np.ndarray) -> np.ndarray:
-        """Global read ids of (file, position) rows ``idx``."""
+    def ids(self, idx: np.ndarray,
+            out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Global read ids of (file, position) rows ``idx`` (into ``out``
+        where given)."""
         if len(self.first) == 1:
             # every row is in the one file
-            return idx[:, 1] + self.first[0]
-        return self.first[idx[:, 0]] + idx[:, 1]
+            return np.add(idx[:, 1], self.first[0], out=out)
+        return np.add(self.first[idx[:, 0]], idx[:, 1], out=out)
 
 
 # device bytes a read takes on the device route: its offset (int64) and
@@ -316,22 +349,25 @@ DEVICE_BYTES_PER_READ = 8 + 4 + 8
 @dataclass
 class EncodedSet:
     """A ReadSet's reads as flat codes, one byte a base (0-3 for A, C, G, T,
-    4 for any other byte), plus a ragged index, per file.
+    4 for any other byte), plus a ragged index, per file, read through
+    each file's ``encoded``.
     An engine call makes one; its copy on the card (``upload``, made where
     the call's Engine._upload finds room) lives as long as it does."""
 
     rs: ReadSet
-    flat_codes: List[np.ndarray] = field(default_factory=list)
-    offsets: List[np.ndarray] = field(default_factory=list)
-    lengths: List[np.ndarray] = field(default_factory=list)
     on_device: Optional[DeviceCodes] = None
 
-    def __post_init__(self):
-        for f in self.rs.files:
-            c, o, ln = f.encoded()
-            self.flat_codes.append(c)
-            self.offsets.append(o)
-            self.lengths.append(ln)
+    @property
+    def flat_codes(self) -> List[np.ndarray]:
+        return [f.encoded()[0] for f in self.rs.files]
+
+    @property
+    def offsets(self) -> List[np.ndarray]:
+        return [f.encoded()[1] for f in self.rs.files]
+
+    @property
+    def lengths(self) -> List[np.ndarray]:
+        return [f.encoded()[2] for f in self.rs.files]
 
     def _extent(self):
         """(the codes buffer's bytes: the set's bases rounded up to
@@ -350,21 +386,26 @@ class EncodedSet:
     def upload(self, device) -> DeviceCodes:
         """Copy every file's codes, offsets and lengths into one buffer
         each on ``device`` (a slice a file, no host concatenation of the
-        codes), kept as ``on_device``."""
+        codes), kept as ``on_device``. A file's page-locked tensors
+        (ReadFile.held) are copied without waiting, from the tensors
+        themselves, so the caching host allocator keeps each block until
+        the copies from it end; the offsets' shift and the codes' tail
+        follow them on the same stream."""
         size, reads = self._extent()
         codes = torch.empty(size, dtype=torch.uint8, device=device)
         offsets = torch.empty(reads, dtype=torch.int64, device=device)
         lengths = torch.empty(reads, dtype=torch.int32, device=device)
-        first = np.zeros(len(self.flat_codes), dtype=np.int64)
+        first = np.zeros(len(self.rs.files), dtype=np.int64)
         b = r = 0
-        for fi, (c, o, ln) in enumerate(zip(self.flat_codes, self.offsets,
-                                            self.lengths)):
+        for fi, f in enumerate(self.rs.files):
+            c, o, ln = f.held or [torch.from_numpy(a) for a in f.encoded()]
+            dma = f.held is not None
             first[fi] = r
-            codes[b:b + len(c)].copy_(torch.from_numpy(c))
-            offsets[r:r + len(ln)].copy_(torch.from_numpy(o[:-1]))
+            codes[b:b + len(c)].copy_(c, non_blocking=dma)
+            offsets[r:r + len(ln)].copy_(o[:-1], non_blocking=dma)
             if b:
                 offsets[r:r + len(ln)].add_(b)
-            lengths[r:r + len(ln)].copy_(torch.from_numpy(ln))
+            lengths[r:r + len(ln)].copy_(ln, non_blocking=dma)
             b += len(c)
             r += len(ln)
         codes[b:].zero_()
@@ -533,11 +574,12 @@ class Engine:
         # host-IO accounting of the last search or resident build: total
         # gather+pack work (prefetch thread, or the launches of the device
         # route), time the dispatch loop waited for a batch, time spent
-        # uploading codes and read ids for the device route, reads packed
-        # on the device, time spent fetching verdicts (0 in a build)
+        # uploading codes and read ids for the device route and the bytes
+        # of it copied from page-locked memory, reads packed on the
+        # device, time spent fetching verdicts (0 in a build)
         self.last_io_stats: Dict[str, float] = {}
         self._io_pack = self._io_block = self._io_upload = 0.0
-        self._io_device = 0
+        self._io_device = self._io_pinned = 0
         self._io_t0 = 0.0
 
     # ---------------------------------------------------------------- host
@@ -570,10 +612,39 @@ class Engine:
                 self._upload_set(enc)
 
     def _upload_set(self, enc: EncodedSet) -> None:
-        """EncodedSet.upload to the engine's device, under ``pack.upload``."""
-        with trace.clocked("pack.upload", bytes=enc.device_bytes()) as up:
+        """EncodedSet.upload to the engine's device, the files uploaded
+        often page-locked first (_pin), under ``pack.upload``: attributes
+        ``bytes``, the bytes copied, and ``pinned``, those copied from
+        page-locked memory."""
+        with trace.clocked("pack.upload") as up:
+            self._pin(enc)
             enc.upload(self.device)
+            copied = pinned = 0
+            for f in enc.rs.files:
+                # the offsets go without their closing entry
+                moved = sum(a.nbytes for a in f.encoded()) - 8
+                copied += moved
+                pinned += moved if f.held is not None else 0
+            up.note(bytes=copied, pinned=pinned)
         self._io_upload += up.seconds
+        self._io_pinned += pinned
+
+    def _pin(self, enc: EncodedSet) -> None:
+        """Count each file's device-route uploads (ReadFile.uploads) and
+        move a file uploaded more than PAGEABLE_UPLOADS times into
+        page-locked memory (ReadFile.move_to), under ``pack.pin``
+        (attribute ``bytes``): once a file, which keeps it as long as it
+        lives. Nothing where the device gains nothing from it
+        (_page_locked)."""
+        alloc = _page_locked(self.device)
+        if alloc is None:
+            return
+        for f in enc.rs.files:
+            f.uploads += 1
+            if f.held is None and f.uploads > PAGEABLE_UPLOADS:
+                with trace.span("pack.pin", bytes=sum(
+                        a.nbytes for a in f.encoded())):
+                    f.move_to(alloc)
 
     def _batched_packed(self, enc: EncodedSet, idx: np.ndarray, lpad: int,
                         size: int):
@@ -590,16 +661,25 @@ class Engine:
         """Yield the batches of _batched_packed gathered and packed on the
         device by pack.gather_pack (its plain version on the CPU) from the
         set's uploaded codes and the rows' global ids, uploaded once under
-        ``pack.upload`` and sliced per batch. Each launch runs inline, under
-        ``host.wait`` and ``host.pack``; ``clean`` is read from the host's
-        count of invalid bases, which is the pack's own test because
-        ``lpad`` holds every read whole."""
+        ``pack.upload`` and sliced per batch. Where the set's files are
+        page-locked (_pin), the ids are worked out into a fresh page-locked
+        buffer too, so their copy is queued without waiting. Each launch
+        runs inline, under ``host.wait`` and ``host.pack``; ``clean`` is
+        read from the host's count of invalid bases, which is the pack's
+        own test because ``lpad`` holds every read whole."""
         dev = enc.on_device
-        gids = dev.ids(idx)
+        alloc = None
+        if all(f.held is not None for f in enc.rs.files):
+            alloc = _page_locked(dev.codes.device)
+        host = (alloc or torch.empty)(len(idx), dtype=torch.int64)
+        gids = dev.ids(idx, out=host.numpy())
         dirty = dev.dirty[gids]
-        with trace.clocked("pack.upload", bytes=gids.nbytes) as up:
-            ids = torch.from_numpy(gids).to(dev.codes.device)
+        pinned = host.nbytes if alloc else 0
+        with trace.clocked("pack.upload", bytes=host.nbytes,
+                           pinned=pinned) as up:
+            ids = host.to(dev.codes.device, non_blocking=bool(alloc))
         self._io_upload += up.seconds
+        self._io_pinned += pinned
         for start in range(0, len(idx), size):
             stop = min(start + size, len(idx))
             with trace.clocked("host.wait") as wait:
@@ -649,7 +729,7 @@ class Engine:
 
     def _io_reset(self):
         self._io_pack = self._io_block = self._io_upload = 0.0
-        self._io_device = 0
+        self._io_device = self._io_pinned = 0
         self._io_t0 = time.time()
 
     def _io_stash(self, fetch_s: float):
@@ -658,6 +738,7 @@ class Engine:
             "host_pack_s": self._io_pack,
             "host_block_s": self._io_block,
             "upload_s": self._io_upload,
+            "upload_pinned_bytes": self._io_pinned,
             "device_packed": self._io_device,
             "fetch_s": fetch_s,
         }

@@ -26,9 +26,10 @@ from __future__ import annotations
 
 import gzip
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from commet_tpu_torch import trace
 from commet_tpu_torch.io.bv import BitVector
@@ -96,7 +97,9 @@ class ReadFile:
     selects which reads exist for downstream consumers; the result vector
     (owned by ReadSet) accumulates search tags. The native library parses
     and encodes the file; the record text is parsed in Python when
-    ``records`` is first read.
+    ``records`` is first read. ``held`` is None until ``move_to`` moves
+    the codes, offsets and lengths into host tensors; ``uploads`` counts
+    the file's uploads to a card, for the engine's choice to move it.
     """
 
     def __init__(self, path: str, bv_path: Optional[str] = None):
@@ -116,6 +119,8 @@ class ReadFile:
         self._invalid_at = np.flatnonzero(self._class_counts[:, 4])
         self.nb_reads = d["n_reads"]
         self._records: Optional[List[bytes]] = None
+        self.held: Optional[Tuple[torch.Tensor, ...]] = None
+        self.uploads = 0
 
         if bv_path:
             bv = BitVector.read(bv_path)
@@ -141,6 +146,20 @@ class ReadFile:
     def encoded(self):
         """(flat_codes uint8, offsets int64 [N+1], lengths int32 [N])."""
         return self._codes, self._offsets, self._lengths
+
+    def move_to(self, alloc) -> None:
+        """Move the codes, offsets and lengths into host tensors that
+        ``alloc(shape, dtype=...)`` makes (the engine's page-locked memory,
+        from which copies to a card run as DMA): ``held`` keeps the tensors
+        (codes, offsets, lengths) and their memory as long as the file
+        lives, ``encoded`` returns numpy views of them, and the parse's
+        arrays go."""
+        held = []
+        for a in self.encoded():
+            src = torch.from_numpy(a)
+            held.append(alloc(src.shape, dtype=src.dtype).copy_(src))
+        self.held = tuple(held)
+        self._codes, self._offsets, self._lengths = (t.numpy() for t in held)
 
     def class_counts(self):
         """Per-read (A,C,G,T,other) counts + lengths, for the filter."""

@@ -2,7 +2,9 @@
 kernel (csrc/pack.cu, pack.gather_pack) against its plain version and the
 host's pack, and the engine's device route against its host route
 (the same tags, counters, .bv bytes and planes), the route a set takes when
-its codes do not fit, and the resident-plane budget counting them. Each
+its codes do not fit, the resident-plane budget counting them, and the
+device route's uploads from page-locked memory (each read file uploaded
+often moved once, its memory let go with it). Each
 skips without a CUDA card. The file imports no JAX, so on a machine without
 it it runs on its own:
 
@@ -10,14 +12,19 @@ it it runs on its own:
         tests/test_torch_gpu_pack.py
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
 
+from commet_tpu_torch import trace
 from commet_tpu_torch.core import pack, planes
 from commet_tpu_torch.engine import engine as tengine
-from torch_helpers import (make_fastas, random_seqs, read_set, run_amortized,
-                           run_engine, write_fasta)
+from commet_tpu_torch.io.reads import ReadFile
+from torch_helpers import (make_fastas, outputs, random_seqs, read_set,
+                           run_amortized, run_engine, write_fasta)
 
 K = 21
 T = 2
@@ -212,3 +219,128 @@ def test_multi_partition_call_reserves_its_later_partitions(
         assert got == want, cap
         assert (pack.gather_pack.launches > launched) == (
             cap >= least + min(sizes)), cap
+
+
+def _traced(fn):
+    """fn()'s result and the engine spans it recorded."""
+    trace.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = fn()
+        return out, trace.recorded()
+    finally:
+        trace.clear()
+
+
+def _three_files(tmp_path, seed):
+    """An index fasta and a query set "Q0" of three files (make_fastas'
+    query reads with their implants, then random reads), a fifth of each
+    file's reads filtered out and a sixth tagged; and the query paths."""
+    idx_fa, qry_fas, _ = make_fastas(tmp_path, seed, K, 0.02, n_idx=3000,
+                                     n_qry=4000)
+    rng = np.random.default_rng(seed)
+    paths = qry_fas + [str(tmp_path / f"more{fi}.fa") for fi in (1, 2)]
+    for fi, path in enumerate(paths[1:], 1):
+        write_fasta(path, random_seqs(rng, 1500 * fi, 0, 150, n_frac=0.03))
+    rs = read_set("Q0", *paths)
+    for fi, f in enumerate(rs.files):
+        f.filter_bv = type(f.filter_bv).from_bool_array(
+            rng.random(f.nb_reads) >= 0.2)
+        pos = np.nonzero(rng.random(f.nb_reads) < 1 / 6)[0]
+        rs.tag(np.full(len(pos), fi), pos.astype(np.int64))
+    return idx_fa, paths, rs
+
+
+@pytest.mark.gpu
+def test_uploads_come_from_page_locked_memory_on_card(tmp_path, monkeypatch,
+                                                      cuda_device):
+    """On the card, the index set's one upload (its build) and the query
+    set's first P uploads (P = PAGEABLE_UPLOADS searches) move no file and
+    copy nothing from page-locked memory (pinned 0); the next search
+    moves each of the query set's files (one pack.pin a file), which then
+    hold their codes, offsets and lengths page-locked (is_pinned) with
+    the parse's bytes, and from then on every upload copies all its bytes
+    from page-locked memory (pinned == bytes); the search after it moves
+    no file. Through build_resident_planes and P + 2
+    search_multi_set_planes of a three-file query set with filtered and
+    tagged rows, in batches of 500 reads, the device route writes the host
+    route's .bv bytes and .log lines and builds its planes."""
+    P = tengine.PAGEABLE_UPLOADS
+    monkeypatch.setattr(tengine, "STREAM_BATCH", 500)
+    monkeypatch.setenv("COMMET_TPU_STREAM", "0")
+    got = {}
+    for route in ("host", "device"):
+        idx_fa, paths, rs = _three_files(tmp_path, 183)
+        eng = tengine.Engine(k=K, t=T, device=cuda_device)
+        if route == "host":
+            _host_route(monkeypatch, eng)
+        out = tmp_path / route
+        out.mkdir()
+        rs_i = read_set("I", idx_fa)
+        resident, spans = _traced(lambda: eng.build_resident_planes(rs_i))
+        calls = [(spans, dict(eng.last_io_stats))]
+        for _ in range(P + 2):
+            _r, spans = _traced(lambda: eng.search_multi_set_planes(
+                rs, [resident], out_dir=str(out), log_dir=str(out)))
+            calls.append((spans, dict(eng.last_io_stats)))
+        torch.cuda.synchronize()
+        got[route] = (outputs(str(out), paths[:1]),
+                      [(out / (p.rsplit("/", 1)[1] + "_in_I.bv"))
+                       .read_bytes() for p in paths],
+                      resident.partitions[0].cpu())
+        pins = [[s for s in spans if s.name == "pack.pin"]
+                for spans, _stats in calls]
+        uploads = [[s.attrs for s in spans if s.name == "pack.upload"]
+                   for spans, _stats in calls]
+        if route == "host":
+            assert pins == [[]] * (P + 3) and uploads == [[]] * (P + 3)
+            assert all(f.held is None for f in rs_i.files + rs.files)
+            continue
+        assert [len(p) for p in pins] == [0] * (P + 1) + [3, 0]
+        for ci, ((spans, stats), up) in enumerate(zip(calls, uploads)):
+            assert len(up) == 2
+            assert all(u["pinned"] == (u["bytes"] if ci > P else 0)
+                       and u["bytes"] > 0 for u in up)
+            assert stats["upload_pinned_bytes"] == sum(u["pinned"]
+                                                       for u in up)
+        assert all(f.held is None for f in rs_i.files)
+        for f in rs.files:
+            assert all(t.is_pinned() for t in f.held)
+            for a, p in zip(f.encoded(), ReadFile(f.path).encoded()):
+                assert np.array_equal(a, p)
+    assert got["device"][:2] == got["host"][:2]
+    assert torch.equal(got["device"][2], got["host"][2])
+
+
+@pytest.mark.gpu
+def test_dropped_read_set_lets_its_page_locked_memory_go(tmp_path,
+                                                         cuda_device):
+    """A read set dropped right after the device-route build that moved
+    it into page-locked memory (its build after PAGEABLE_UPLOADS others)
+    frees its tensors without error, to PyTorch's caching host allocator,
+    which keeps the blocks page-locked; page-locked blocks of the same
+    sizes taken at once and overwritten leave the build's planes as a
+    fresh build of the set makes them (the allocator hands out no block a
+    copy still reads)."""
+    rng = np.random.default_rng(184)
+    path = str(tmp_path / "i.fa")
+    write_fasta(path, random_seqs(rng, 20000, 20, 150, n_frac=0.01))
+    eng = tengine.Engine(k=K, t=T, device=cuda_device)
+    rs = read_set("I", path)
+    for _ in range(tengine.PAGEABLE_UPLOADS):
+        eng.build_resident_planes(rs)
+        assert rs.files[0].held is None
+    first = eng.build_resident_planes(rs)
+    sizes = [(t.shape, t.dtype) for t in rs.files[0].held]
+    held = [weakref.ref(t) for t in rs.files[0].held]
+    del rs
+    gc.collect()
+    assert all(r() is None for r in held)
+    taken = [torch.empty(shape, dtype=dtype, pin_memory=True).fill_(3)
+             for shape, dtype in sizes]
+    torch.cuda.synchronize()
+    again = eng.build_resident_planes(read_set("I", path))
+    torch.cuda.synchronize()
+    assert torch.equal(first.partitions[0], again.partitions[0])
+    assert all(t.is_pinned() for t in taken)

@@ -179,7 +179,8 @@ def test_engine_device_route_outputs_and_io_stats(tmp_path, monkeypatch,
     stats = eng.last_io_stats
     # the planes' resident search also counts the plane sets it probed
     assert set(stats) == {"wall_s", "host_pack_s", "host_block_s",
-                          "upload_s", "device_packed", "fetch_s"} | (
+                          "upload_s", "upload_pinned_bytes", "device_packed",
+                          "fetch_s"} | (
                               {"slots"} if route == "planes" else set())
     assert stats["device_packed"] == 150 and stats["upload_s"] > 0.0
 

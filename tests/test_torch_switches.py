@@ -138,9 +138,11 @@ def test_prefetch_off_makes_no_thread(tmp_path, monkeypatch):
     assert len(seen) > 4 and max(seen) == 40
     assert set(eng.last_io_stats) == {"wall_s", "host_pack_s",
                                       "host_block_s", "upload_s",
+                                      "upload_pinned_bytes",
                                       "device_packed", "fetch_s"}
     assert eng.last_io_stats["host_block_s"] >= 0.0
     assert eng.last_io_stats["device_packed"] == 0
+    assert eng.last_io_stats["upload_pinned_bytes"] == 0
 
 
 @pytest.mark.parametrize("switch,stream_mode", [
