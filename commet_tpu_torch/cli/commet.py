@@ -15,7 +15,8 @@ Given a file-of-files manifest (one line per read set,
 
 Step 0 takes the amortized schedule by default (``run_amortized_rounds``):
 the index sets stay resident on the device, as sorted indexes below the fill
-gate and in plane cohorts above it (``run_plane_cohorts``), and each query
+gate (``build_sorted_residents``) and in plane cohorts above it
+(``run_plane_cohorts``, ``build_plane_cohort``), and each query
 set is searched once against all of them. ``COMMET_TPU_MULTI=0`` selects the
 classic rounds, which also run, with a printed line, where neither amortized
 form can serve the sets. ``--jobs N`` (and ``--sge``, which means
@@ -210,22 +211,16 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
               "on one device)")
         return False
     env = os.environ.get("COMMET_TPU_RESIDENT_BUDGET")
-    budget = float(env) if env else None
-    residents = []
-    total_bytes = 0
-    for i in range(end):
-        rs = _load_set(names[i], read_matrix[i], bv_matrix[i])
-        r = eng.build_resident(
-            rs, budget=None if budget is None else budget - total_bytes)
-        if r is None:
-            residents = None  # free the sorted residents before the planes
-            return run_plane_cohorts(
-                read_matrix, bv_matrix, names, out_dir, end, eng,
-                f"{names[i]} cannot stay resident as a sorted index at "
-                f"k={eng.k}: above the fill gate or the device-memory "
-                "budget")
-        total_bytes += r.device_bytes()
-        residents.append(r)
+    residents, total_bytes = build_sorted_residents(
+        eng, lambda i: _load_set(names[i], read_matrix[i], bv_matrix[i]),
+        end, float(env) if env else None)
+    if len(residents) < end:
+        declined = names[len(residents)]
+        residents = None  # free the sorted residents before the planes
+        return run_plane_cohorts(
+            read_matrix, bv_matrix, names, out_dir, end, eng,
+            f"{declined} cannot stay resident as a sorted index at "
+            f"k={eng.k}: above the fill gate or the device-memory budget")
     print(f"schedule: amortized ({end} resident indexes, {total_bytes} "
           "device bytes)")
     for j in range(1, len(names)):
@@ -242,6 +237,26 @@ def run_amortized_rounds(read_matrix, bv_matrix, names, out_dir, end, eng):
         for j in range(i + 1, len(names)):
             refine_pair(read_matrix, bv_matrix, names, out_dir, i, j, eng)
     return True
+
+
+def build_sorted_residents(eng, load, end, budget):
+    """The sorted residents of step 0: index sets 0 .. ``end`` - 1
+    (``load(i) -> ReadSet``) built in turn as resident sorted indexes
+    (Engine.build_resident), each within ``budget`` (None: the engine's own
+    limits alone) less the residents built before it. Returns (the
+    residents, their device bytes); the builds stop at the first set that
+    cannot stay resident (a partition above the fill gate, k above
+    RESIDENT_MAX_K, a mesh, or over the budget), so fewer than ``end``
+    residents means that set ``len(residents)`` declined."""
+    residents, total = [], 0
+    for i in range(end):
+        r = eng.build_resident(
+            load(i), budget=None if budget is None else budget - total)
+        if r is None:
+            break
+        residents.append(r)
+        total += r.device_bytes()
+    return residents, total
 
 
 def build_plane_cohort(eng, load, start, end, budget, max_s):

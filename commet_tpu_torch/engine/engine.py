@@ -95,6 +95,8 @@ loop waits for a batch (on the device route, around each launch);
 and files) around a search's batch loop; ``search.slots`` (attribute
 ``slots``) around each group's PlaneSlots in search_multi_set_planes, its
 table upload included;
+``search.exact`` (attributes ``resident``, the resident's position in the
+call, and ``reads``) around each slot's exact fallback in search_multi_set;
 ``finish.resident`` (attributes ``resident``, the resident's position in
 the call, and ``shared``) around each resident's counters, .log and .bv
 writes in _multi_finish; ``build.count`` (attributes ``reads``, the rows
@@ -104,7 +106,8 @@ partitions; ``io.write`` (the .bv and .log files).
 ``host.pack``, ``host.wait``, ``pack.upload`` and ``search.fetch`` are the
 blocks that ``last_io_stats`` sums, with ``upload_pinned_bytes``, the
 uploads' ``pinned`` bytes; search_multi_set_planes adds ``slots``, the
-plane sets each read is probed against.
+plane sets each read is probed against, and search_multi_set ``slots``,
+``ambig`` (the read-slot pairs of its exact fallback) and ``exact_s``.
 
 There is no CPU fallback: the engine runs on the device it is given.
 """
@@ -1262,10 +1265,14 @@ class Engine:
         counters as len(residents) pairwise index_and_search calls, keyed by
         resident name: per-partition verdicts OR-ed across partitions, each
         slot's AMBIG residue through the exact sorted-set probe on the
-        device (every k: the keys are whole int64 values). Returns None when
-        the batch geometry cannot serve the query set (stream_batch_size),
-        so run_amortized_rounds runs the classic rounds. Counterpart of
-        search_multi_set."""
+        device (every k: the keys are whole int64 values), a ``search.exact``
+        span (attributes ``resident``, its position in the call, and
+        ``reads``) around each slot's. last_io_stats adds ``slots``, the
+        slots each read is joined against, ``ambig``, the read-slot pairs
+        sent to the exact probe, and ``exact_s``, its seconds. Returns None
+        when the batch geometry cannot serve the query set
+        (stream_batch_size), so run_amortized_rounds runs the classic
+        rounds. Counterpart of search_multi_set."""
         t_start = time.time()
         with trace.span("search.select"):
             enc_q = EncodedSet(query_set)
@@ -1286,6 +1293,7 @@ class Engine:
             self._io_reset()
             self._upload([enc_q], STREAM_BATCH_BYTES)
             fetch_s = 0.0
+            ambig = 0  # read-slot pairs sent to the exact fallback
             for base in range(0, len(slots), max_slots):
                 group = slots[base:base + max_slots]
                 table = stream.JoinSlots([sx.ika for _ri, sx in group],
@@ -1312,11 +1320,16 @@ class Engine:
                     amb = np.concatenate(amb_slot[s])
                     if not len(amb):
                         continue
-                    t_fb = time.time()
-                    tags_slot[base + s, amb] = self._search_stream_fallback(
-                        sx, enc_q, cand[amb], geom)
-                    fb_time[ri] += time.time() - t_fb
+                    with trace.clocked("search.exact", resident=ri,
+                                       reads=len(amb)) as exact:
+                        tags_slot[base + s, amb] = \
+                            self._search_stream_fallback(sx, enc_q,
+                                                         cand[amb], geom)
+                    fb_time[ri] += exact.seconds
+                    ambig += len(amb)
             self._io_stash(fetch_s)
+            self.last_io_stats.update(slots=len(slots), ambig=ambig,
+                                      exact_s=sum(fb_time))
         return self._multi_finish(query_set, residents, cand, tags_slot,
                                   fb_time, t_start, out_dir, log_dir, save)
 

@@ -158,7 +158,7 @@ def test_engine_device_route_outputs_and_io_stats(tmp_path, monkeypatch,
     counter lines through index_and_search and the resident calls, the
     planes route and the sorted one; last_io_stats carries upload_s and
     device_packed, the reads searched on the device route and 0 on the
-    host's."""
+    host's, and the resident searches' own counters."""
     monkeypatch.setenv("COMMET_TPU_STREAM", "0" if route == "planes"
                        else "force")
     monkeypatch.setattr(tengine, "STREAM_BATCH", 40)
@@ -177,11 +177,13 @@ def test_engine_device_route_outputs_and_io_stats(tmp_path, monkeypatch,
                          route == "planes"))
     assert got == want
     stats = eng.last_io_stats
-    # the planes' resident search also counts the plane sets it probed
+    # the resident searches also count the slots a read is probed
+    # against, and the sorted one its exact fallback's reads and seconds
     assert set(stats) == {"wall_s", "host_pack_s", "host_block_s",
                           "upload_s", "upload_pinned_bytes", "device_packed",
-                          "fetch_s"} | (
-                              {"slots"} if route == "planes" else set())
+                          "fetch_s", "slots"} | (
+                              set() if route == "planes"
+                              else {"ambig", "exact_s"})
     assert stats["device_packed"] == 150 and stats["upload_s"] > 0.0
 
 
